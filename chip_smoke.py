@@ -6,18 +6,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. card check: a CUDA device must be present; prints its name and power
    limit as nvidia-smi reports them;
-2. build: compiles ``velo_tpu_torch/csrc/dist_topk.cu`` with nvcc (sm_90a);
-3. kernel check: the kernel against its plain PyTorch version at the four
-   shapes of the LiDAR odometry path (bitwise equal), recall against an
-   exact top-16, and both times from CUDA events;
-4. pipeline run: 8 full-scale (64 x 2048) LiDAR-only frames through
-   ``pipeline.odometry.run_sequence`` on the card, which must launch the
-   kernel 4 times per frame, stay within the pose gates against ground
-   truth and agree with the port's own CPU path (plain dist_topk) on the
-   same frames.
+2. build: compiles ``velo_tpu_torch/csrc/dist_topk.cu`` and ``klt_l0.cu``
+   with nvcc (sm_90a), one process each, started together;
+3. fixture: one full-scale drive (64 x 2048 LiDAR, 192 x 640 images,
+   8 frames, seed 0), host-pre-binned once and shared by the phases below;
+4. kernel checks at the shapes of the odometry path, each kernel against
+   its plain PyTorch version on the card (bitwise), with CUDA-event times
+   of the wrapper, the kernel alone, the plain version and, where one
+   exists, a PyTorch library call for the same function:
+   ``dist_topk`` at its four calls per frame (plus recall against an exact
+   top-16), ``klt_l0`` on 256 corners of frame 0 tracked into frame 1
+   (8 iterations) and back (4 iterations);
+5. fused pipeline: the 8 frames through ``pipeline.odometry.run_sequence``
+   at the bench's fused configuration with ``klt_impl="pallas"``; it must
+   launch ``klt_l0`` 2 and ``dist_topk`` 4 times per frame, keep the whole
+   carry on the card, stay within the pose gates against ground truth,
+   agree with the port's own CPU run of the same frames, and a short
+   profile reads the card's busy share;
+6. the same fused run with the shipped ``klt_impl="auto"`` (level 0 on the
+   gather sampler, no ``klt_l0`` launch): ground truth, frames/s and
+   profile beside the kernel's, to decide which should be the default;
+7. LiDAR-only pipeline: the same frames without images, the checks of the
+   first slice (4 ``dist_topk`` launches per frame, ground truth, CPU).
 
-Prints a JSON line of per-kernel results, then as its last line
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Prints a JSON line of pipeline results, one of per-kernel results, then as
+its last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -37,8 +50,23 @@ PATH_SHAPES = [(1024, 3072, 4), (2048, 6144, 4), (1024, 16384, 32),
 K = 16
 N_FRAMES = 8
 SEED = 0
-GATE_GT_M, GATE_GT_DEG = 0.25, 1.0  # full-scale pose error vs ground truth
+RINGS, AZ, IMG_H, IMG_W = 64, 2048, 192, 640
+GATE_GT_M = 0.25  # full-scale pose error vs ground truth (m)
+GATE_GT_DEG = {"lidar": 1.0, "fused": 1.5, "fused-gather": 1.5}  # (deg)
 GATE_CPU_M, GATE_CPU_DEG = 0.05, 0.1  # card vs the port's own CPU run
+# H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM rate, float32 outside
+# the tensor cores.
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+# klt_l0 arithmetic, counted from its plain version: a template (a track
+# whose support lies inside the image) costs three
+# 15x15 bilinear patches (16x15 row lerps + 15x15 column lerps, 3 ops
+# each, ~1397), Scharr gx and gy on the 16x16 support (9 ops per value,
+# 4608) and three 225-term products and sums (1347); a Gauss-Newton step
+# one patch, the error (225) and two 225-term product sums (898), ~2528.
+KLT_TEMPLATE_OPS = 3 * 1397 + 4608 + 1347
+KLT_STEP_OPS = 1397 + 225 + 898 + 8
+DIST_TOPK_OPS_PER_PAIR = 7  # 4 products and 3 sums of s per query-target
 
 
 def card_check() -> str:
@@ -58,10 +86,31 @@ def build() -> None:
     from velo_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.load("dist_topk")
-    print(f"build: dist_topk in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_seconds.get('dist_topk', 0.0):.2f} s)",
+    _build.build_all(["dist_topk", "klt_l0"])
+    for name in ("dist_topk", "klt_l0"):
+        _build.load(name)
+        regs = [ln.strip() for ln in _build.build_logs.get(name, "").split(
+            "\n") if "registers" in ln or "spill" in ln]
+        print(f"build: {name} nvcc "
+              f"{_build.build_seconds.get(name, 0.0):.2f} s; {regs}",
+              flush=True)
+    print(f"build: both kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
+
+
+def make_frames():
+    import velo_tpu_torch as vt
+    from velo_tpu_torch.lidar import rangeimage as ri_mod
+
+    t0 = time.perf_counter()
+    fx = vt.fixtures.make_fixture(n_frames=N_FRAMES, n_rings=RINGS,
+                                  n_azimuth=AZ, height=IMG_H, width=IMG_W,
+                                  seed=SEED)
+    lcfg = vt.config.LidarConfig(n_rings=RINGS, n_azimuth=AZ)
+    grids = [ri_mod.bin_scan_host(s, lcfg) for s in fx.scans]
+    print(f"fixture: {N_FRAMES} frames with images in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return fx, grids
 
 
 def _median_ms(fn, bursts: int = 21, calls: int = 10) -> float:
@@ -84,7 +133,13 @@ def _median_ms(fn, bursts: int = 21, calls: int = 10) -> float:
     return float(np.median(times))
 
 
-def kernel_check(dev) -> dict:
+def _bound_ms(n_bytes: float, n_ops: float):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP32_FLOP_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def dist_topk_check(dev) -> dict:
     from velo_tpu_torch.kernels import dist_topk as dtk
     from velo_tpu_torch.kernels.dist_topk import dist_topk, dist_topk_reference
 
@@ -124,14 +179,79 @@ def kernel_check(dev) -> dict:
         # The kernel alone, without the wrapper's small torch ops around it.
         m, q_aug, tn, nbt = dtk._prepare(tt, tmt, qt, K, bf)
         kernel_ms = _median_ms(lambda: dtk._select_cuda(q_aug, m, tn, nbt, K))
+        # Yardstick, used nowhere in the port: exact distances + top-16.
+        library_ms = _median_ms(lambda: torch.topk(
+            torch.cdist(qt, tt), K, dim=1, largest=False))
+        bound_ms, bound_by = _bound_ms(
+            n * 13 + q * 12 + q * K * 8, q * n * DIST_TOPK_OPS_PER_PAIR)
         per_shape.append({"q": q, "n": n, "bin_factor": bf, "ms": ms,
                           "plain_ms": plain_ms, "kernel_only_ms": kernel_ms,
-                          "recall": recall, "nearest_kept": nearest})
+                          "library_ms": library_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "recall": recall,
+                          "nearest_kept": nearest})
         print(f"dist_topk Q={q} N={n} B={bf}: wrapper {ms:.4f} ms (kernel "
-              f"alone {kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, recall "
-              f"{recall:.4f}, nearest {nearest:.4f}, bitwise equal",
-              flush=True)
+              f"alone {kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"topk(cdist) {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}), recall {recall:.4f}, nearest {nearest:.4f}, "
+              "bitwise equal", flush=True)
     return {"per_shape": per_shape, "max_abs_err": max_err}
+
+
+def klt_l0_check(dev, fx) -> dict:
+    """The kernel on 256 corners of frame 0 tracked into frame 1 (8
+    iterations, from the template position) and back (4 iterations, from
+    the forward result to the start), as the fused path calls it."""
+    import velo_tpu_torch as vt
+    from velo_tpu_torch.kernels import klt_l0 as kl
+    from velo_tpu_torch.vision import corners
+
+    vc = vt.config.VisionConfig(height=IMG_H, width=IMG_W, klt_impl="pallas")
+    im0 = torch.as_tensor(fx.images[0], device=dev)
+    im1 = torch.as_tensor(fx.images[1], device=dev)
+    uv0 = corners.detect(im0, vc).uv.contiguous()
+    if uv0.shape != (vc.k_tracks, 2):
+        raise AssertionError(f"corners: {tuple(uv0.shape)}")
+    fwd, _ = kl.track_level0_reference(im0, im1, uv0, uv0, vc, vc.klt_iters)
+    calls = {"forward": (im0, im1, uv0, uv0, vc.klt_iters),
+             "backward": (im1, im0, fwd, uv0, vc.klt_iters_fb)}
+    per_call, max_err = [], 0.0
+    for name, (a, b, up, uc, iters) in calls.items():
+        uv, ok = kl.track_level0(a, b, up, uc, vc, iters)
+        ruv, rok = kl.track_level0_reference(a, b, up, uc, vc, iters)
+        torch.cuda.synchronize()
+        if not (torch.equal(ok, rok) and torch.equal(uv, ruv)):
+            raise AssertionError(
+                f"klt_l0 {name}: kernel != plain: ok equal on "
+                f"{(ok == rok).float().mean().item():.4f}, max |uv diff| "
+                f"{(uv - ruv).abs().max().item()}")
+        max_err = max(max_err, (uv - ruv).abs().max().item())
+        n_ok = int(ok.sum())
+        if n_ok < 100:
+            raise AssertionError(f"klt_l0 {name}: only {n_ok} tracks ok")
+        ms = _median_ms(lambda: kl.track_level0(a, b, up, uc, vc, iters))
+        kernel_ms = _median_ms(lambda: kl._launch(a, b, up, uc, iters))
+        plain_ms = _median_ms(
+            lambda: kl.track_level0_reference(a, b, up, uc, vc, iters),
+            bursts=7, calls=3)
+        n_tmpl, n_steps, n_px = kl.work(a, b, up, uc, vc, iters)
+        k = up.shape[0]
+        # Bytes: the distinct float32 pixels this run's tracks read, both
+        # positions in, uv and ok out.
+        bound_ms, bound_by = _bound_ms(
+            n_px * 4 + 2 * k * 8 + k * 9,
+            n_tmpl * KLT_TEMPLATE_OPS + n_steps * KLT_STEP_OPS)
+        per_call.append({"call": name, "h": IMG_H, "w": IMG_W, "k": k,
+                         "iters": iters, "ms": ms, "kernel_only_ms": kernel_ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "templates": n_tmpl,
+                         "steps": n_steps, "pixels_read": n_px, "ok": n_ok})
+        print(f"klt_l0 {name} {IMG_H}x{IMG_W} K={k} iters={iters}: wrapper "
+              f"{ms:.4f} ms (kernel alone {kernel_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}; "
+              f"{n_tmpl} templates, {n_steps} steps, {n_px} pixels read), "
+              f"{n_ok} ok, bitwise "
+              "equal", flush=True)
+    return {"per_shape": per_call, "max_abs_err": max_err}
 
 
 def _pose_errors(a: np.ndarray, b: np.ndarray):
@@ -148,89 +268,174 @@ def _pose_errors(a: np.ndarray, b: np.ndarray):
     return dt, np.degrees(np.arctan2(sin, cos))
 
 
-def pipeline_run(dev) -> dict:
-    import velo_tpu_torch as vt
-    from velo_tpu_torch.kernels.dist_topk import dist_topk
-    from velo_tpu_torch.lidar import rangeimage as ri_mod
-    from velo_tpu_torch.pipeline import odometry
-
-    cfg = vt.config.VeloConfig(
-        lidar=vt.config.LidarConfig(n_rings=64, n_azimuth=2048),
-        use_vision=False, use_map=True, prebin_host=True)
-    t0 = time.perf_counter()
-    fx = vt.fixtures.make_fixture(n_frames=N_FRAMES, n_rings=64,
-                                  n_azimuth=2048, with_images=False,
-                                  seed=SEED)
-    frames = [ri_mod.bin_scan_host(s, cfg.lidar) for s in fx.scans]
-    print(f"fixture: {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-
-    dist_topk.launches = 0
-    poses, diags, carry = odometry.run_sequence(frames, cfg, device=dev)
-    torch.cuda.synchronize()
-    launches = dist_topk.launches
-    if launches != 4 * N_FRAMES:
-        raise AssertionError(f"{launches} dist_topk launches, expected "
-                             f"{4 * N_FRAMES}")
+def _carry_leaves(carry):
     leaves = [x for x in carry if isinstance(x, torch.Tensor)]
     leaves += list(carry.edge_map) + list(carry.planar_map)
-    if not all(x.is_cuda for x in leaves):
-        raise AssertionError("carry left the card")
+    if carry.vision is not None:
+        v = carry.vision
+        leaves += list(v.pyr) + [g for pair in v.grads for g in pair]
+        leaves += list(v.tracks)
+    return leaves
+
+
+def _profile(frames, cfg, carry, cam) -> dict:
+    """torch.profiler over 2 frames from a warm carry: wall time, summed
+    card kernel time, kernel count, and the two port kernels' shares."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from velo_tpu_torch.pipeline import odometry
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        odometry.run_sequence(frames, cfg, carry=carry, cam=cam)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n, own = 0.0, 0, {"klt_l0": 0.0, "dist_topk": 0.0}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dt = getattr(ev, "device_time", None)
+            dt = getattr(ev, "cuda_time", 0.0) if dt is None else dt
+            busy += dt * 1e-6
+            n += 1
+            for key in own:
+                if key in ev.name:
+                    own[key] += dt * 1e-6
+    return {"frames": len(frames), "wall_s": wall, "device_s": busy,
+            "kernels": n, "busy_share": busy / wall,
+            "klt_l0_s": own["klt_l0"], "dist_topk_s": own["dist_topk"]}
+
+
+def pipeline_run(dev, mode, fx, grids) -> dict:
+    """One cell: "fused" (level 0 through ``klt_l0``), "fused-gather" (the
+    shipped ``klt_impl="auto"``, level 0 on the gather sampler; no CPU
+    run) or "lidar"."""
+    import velo_tpu_torch as vt
+    from velo_tpu_torch.geom import camera
+    from velo_tpu_torch.kernels.dist_topk import dist_topk
+    from velo_tpu_torch.kernels.klt_l0 import track_level0
+    from velo_tpu_torch.pipeline import odometry
+
+    fused = mode != "lidar"
+    cfg = vt.config.VeloConfig(
+        lidar=vt.config.LidarConfig(n_rings=RINGS, n_azimuth=AZ),
+        vision=vt.config.VisionConfig(
+            height=IMG_H, width=IMG_W,
+            klt_impl="auto" if mode == "fused-gather" else "pallas"),
+        use_vision=fused, use_map=True, prebin_host=True)
+    frames = ([g + (img,) for g, img in zip(grids, fx.images)] if fused
+              else grids)
+    cam = (camera.from_numpy(fx.P, fx.T_cam_velo, IMG_W, IMG_H, dev)
+           if fused else None)
+
+    dist_topk.launches = 0
+    track_level0.launches = 0
+    poses, diags, carry = odometry.run_sequence(frames, cfg, device=dev,
+                                                cam=cam)
+    torch.cuda.synchronize()
+    launches = {"dist_topk": dist_topk.launches,
+                "klt_l0": track_level0.launches}
+    expect = {"dist_topk": 4 * N_FRAMES,
+              "klt_l0": 2 * N_FRAMES if mode == "fused" else 0}
+    if launches != expect:
+        raise AssertionError(f"{mode}: launches {launches}, expected "
+                             f"{expect}")
+    if not all(x.is_cuda for x in _carry_leaves(carry)):
+        raise AssertionError(f"{mode}: carry left the card")
     if not np.all(np.isfinite(poses)) or poses.shape != (N_FRAMES, 4, 4):
-        raise AssertionError(f"bad poses: shape {poses.shape}")
+        raise AssertionError(f"{mode}: bad poses: shape {poses.shape}")
 
     gt = np.linalg.inv(fx.gt_poses_velo[0]) @ fx.gt_poses_velo
     gt_t, gt_r = _pose_errors(poses, gt)
-    print(f"pose error vs ground truth: max {gt_t.max():.4f} m, "
-          f"{gt_r.max():.4f} deg", flush=True)
-    if gt_t.max() > GATE_GT_M or gt_r.max() > GATE_GT_DEG:
-        raise AssertionError("pose error vs ground truth above the gate")
+    print(f"{mode}: pose error vs ground truth: max {gt_t.max():.4f} m, "
+          f"{gt_r.max():.4f} deg; n_depth {diags['n_depth'].tolist()}",
+          flush=True)
+    if gt_t.max() > GATE_GT_M or gt_r.max() > GATE_GT_DEG[mode]:
+        raise AssertionError(f"{mode}: pose error vs ground truth above the "
+                             "gate")
 
-    # The same frames through the port's CPU path (plain dist_topk).
+    cpu = _cpu_compare(mode, frames, cfg, cam, poses, diags) \
+        if mode != "fused-gather" else {}
+
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cpu_poses, _, _ = odometry.run_sequence(frames, cfg, device="cpu")
+    _, _, warm = odometry.run_sequence(frames, cfg, device=dev, cam=cam)
+    torch.cuda.synchronize()
+    fps = N_FRAMES / (time.perf_counter() - t0)
+    prof = _profile(frames[:2], cfg, warm, cam) if fused else None
+    if prof is not None:
+        print(f"{mode}: profile of 2 warm frames: {prof}", flush=True)
+    return {"mode": mode, "launches": launches, "fps": fps,
+            "gt_err_m": float(gt_t.max()), "gt_err_deg": float(gt_r.max()),
+            **cpu, "n_depth": diags["n_depth"].tolist(), "profile": prof}
+
+
+def _cpu_compare(mode, frames, cfg, cam, poses, diags) -> dict:
+    """The same frames through the port's CPU path (plain kernels)."""
+    from velo_tpu_torch.pipeline import odometry
+
+    t0 = time.perf_counter()
+    cpu_poses, cpu_diags, _ = odometry.run_sequence(frames, cfg,
+                                                    device="cpu", cam=cam)
     cpu_t, cpu_r = _pose_errors(poses, cpu_poses)
     bitwise = bool(np.array_equal(poses, cpu_poses))
     for f in range(N_FRAMES):
-        print(f"frame {f}: card vs CPU {cpu_t[f]:.6f} m, {cpu_r[f]:.6f} deg",
-              flush=True)
-    print(f"card vs CPU over {N_FRAMES} frames: max {cpu_t.max():.6f} m, "
-          f"{cpu_r.max():.6f} deg, poses bitwise equal: {bitwise} "
+        print(f"{mode} frame {f}: card vs CPU {cpu_t[f]:.6f} m, "
+              f"{cpu_r[f]:.6f} deg", flush=True)
+    print(f"{mode}: card vs CPU over {N_FRAMES} frames: max "
+          f"{cpu_t.max():.6f} m, {cpu_r.max():.6f} deg, poses bitwise equal: "
+          f"{bitwise}, n_depth equal: "
+          f"{bool(np.array_equal(diags['n_depth'], cpu_diags['n_depth']))} "
           f"(CPU run {time.perf_counter() - t0:.1f} s)", flush=True)
     if cpu_t.max() > GATE_CPU_M or cpu_r.max() > GATE_CPU_DEG:
-        raise AssertionError("card and CPU poses disagree")
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    odometry.run_sequence(frames, cfg, device=dev)
-    torch.cuda.synchronize()
-    fps = N_FRAMES / (time.perf_counter() - t0)
-    return {"launches": launches, "fps": fps,
-            "gt_err_m": float(gt_t.max()), "gt_err_deg": float(gt_r.max()),
-            "cpu_diff_m": float(cpu_t.max()),
+        raise AssertionError(f"{mode}: card and CPU poses disagree")
+    return {"cpu_diff_m": float(cpu_t.max()),
             "cpu_diff_deg": float(cpu_r.max()), "cpu_bitwise": bitwise}
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     smi = card_check()
     dev = torch.device("cuda", 0)
     build()
-    kc = kernel_check(dev)
-    run = pipeline_run(dev)
-    print(f"LiDAR-only 64x2048 warm pass: {run['fps']:.3f} frames/s on "
-          f"{smi}", flush=True)
-    kernel = {
-        "name": "dist_topk", "route": "cuda",
-        "source": "velo_tpu_torch/csrc/dist_topk.cu",
-        "replaces": "velo_tpu/pallas/dist_topk.py:49",
-        "launches": run["launches"], "max_abs_err": kc["max_abs_err"],
-        # One frame's four calls: sums of the per-shape medians.
-        "ms": sum(s["ms"] for s in kc["per_shape"]),
-        "plain_ms": sum(s["plain_ms"] for s in kc["per_shape"]),
-        "per_shape": kc["per_shape"],
-    }
-    print(json.dumps({"pipeline": run}), flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    fx, grids = make_frames()
+    dk = dist_topk_check(dev)
+    kk = klt_l0_check(dev, fx)
+    runs = {mode: pipeline_run(dev, mode, fx, grids)
+            for mode in ("fused", "fused-gather", "lidar")}
+    for mode, run in runs.items():
+        print(f"{mode} 64x2048 warm pass: {run['fps']:.3f} frames/s on "
+              f"{smi}", flush=True)
+
+    def entry(name, source, replaces, check, library_ms, **extra):
+        shapes = check["per_shape"]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": runs["fused"]["launches"][name],
+            "max_abs_err": check["max_abs_err"],
+            # One frame's calls: sums of the per-call medians.
+            "ms": sum(s["ms"] for s in shapes),
+            "plain_ms": sum(s["plain_ms"] for s in shapes),
+            "bound_ms": sum(s["bound_ms"] for s in shapes),
+            "bound_by": shapes[-1]["bound_by"],
+            "library_ms": library_ms, "per_shape": shapes, **extra}
+
+    kernels = [
+        entry("dist_topk", "velo_tpu_torch/csrc/dist_topk.cu",
+              "velo_tpu/pallas/dist_topk.py:49", dk,
+              sum(s["library_ms"] for s in dk["per_shape"]),
+              library_call="torch.topk(torch.cdist(q, t), 16, "
+                           "largest=False): exact, unbinned"),
+        entry("klt_l0", "velo_tpu_torch/csrc/klt_l0.cu",
+              "velo_tpu/pallas/klt_l0.py:87", kk, None,
+              library_call="none: no single PyTorch call computes "
+                           "inverse-compositional Lucas-Kanade"),
+    ]
+    print(json.dumps({"pipeline": runs,
+                      "seconds": time.perf_counter() - t_start}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,5 @@
-"""Port parity: SE(3) utilities and the closed-form 3x3 eigensolver.
+"""Port parity: SE(3) utilities, the closed-form 3x3 eigensolver and the
+pinhole camera.
 
 The same numpy inputs go through ``velo_tpu`` (JAX, CPU) and
 ``velo_tpu_torch``.  Tolerance atol 1e-5: both run float32 with the same
@@ -9,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from velo_tpu.geom import camera as jcam
 from velo_tpu.geom import linalg as jlin
 from velo_tpu.geom import se3 as jse3
+from velo_tpu.io import fixtures
+from velo_tpu_torch.geom import camera as tcam
 from velo_tpu_torch.geom import linalg as tlin
 from velo_tpu_torch.geom import se3 as tse3
 
@@ -82,3 +86,46 @@ def test_sym_eig3x3_matches_reference():
     np.testing.assert_allclose(dots, 1.0, atol=ATOL)
     np.testing.assert_allclose(ev_t, np.linalg.eigvalsh(A), rtol=1e-4,
                                atol=1e-4)
+
+
+def test_camera_matches_reference():
+    """project / project_depth / backproject / normalized_ray / in_image on
+    the fixture calibration, with points in front of, behind and beside
+    the camera.  Pixels to 1e-3 (|x| up to ~4e4 before the division),
+    depths and rays to 1e-5 relative."""
+    P, T = fixtures.default_calib(128, 384)
+    cam_j = jcam.Camera(P=jnp.asarray(P, jnp.float32),
+                        T_cam_velo=jnp.asarray(T, jnp.float32),
+                        width=384, height=128)
+    cam_t = tcam.from_numpy(P, T, 384, 128, "cpu")
+    np.testing.assert_array_equal(cam_t.P.numpy(), np.asarray(cam_j.P))
+    assert float(cam_t.fx) == float(cam_j.fx)
+    assert float(cam_t.cy) == float(cam_j.cy)
+    rng = np.random.default_rng(6)
+    pts = np.stack([rng.uniform(-20, 20, 512), rng.uniform(-5, 5, 512),
+                    rng.uniform(-5, 60, 512)], -1).astype(np.float32)
+    pts[:4, 2] = [0.0, 1e-7, -1.0, 2e-6]  # the guard around z = 0
+    uv_j, v_j = jcam.project(cam_j.P, jnp.asarray(pts))
+    uv_t, v_t = tcam.project(cam_t.P, torch.tensor(pts))
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    np.testing.assert_allclose(uv_t.numpy(), np.asarray(uv_j), rtol=1e-5,
+                               atol=1e-3)
+    _, z_j, _ = jcam.project_depth(cam_j.P, jnp.asarray(pts))
+    _, z_t, _ = tcam.project_depth(cam_t.P, torch.tensor(pts))
+    np.testing.assert_allclose(z_t.numpy(), np.asarray(z_j), rtol=1e-5,
+                               atol=1e-5)
+    uv = np.stack([rng.uniform(-10, 394, 512), rng.uniform(-10, 138, 512)],
+                  -1).astype(np.float32)
+    depth = rng.uniform(1, 50, 512).astype(np.float32)
+    np.testing.assert_allclose(
+        tcam.backproject(cam_t, torch.tensor(uv), torch.tensor(depth)).numpy(),
+        np.asarray(jcam.backproject(cam_j, jnp.asarray(uv),
+                                    jnp.asarray(depth))), rtol=1e-5,
+        atol=1e-5)
+    np.testing.assert_allclose(
+        tcam.normalized_ray(cam_t, torch.tensor(uv)).numpy(),
+        np.asarray(jcam.normalized_ray(cam_j, jnp.asarray(uv))), atol=1e-6)
+    for margin in (0.0, 2.5):
+        np.testing.assert_array_equal(
+            tcam.in_image(cam_t, torch.tensor(uv), margin).numpy(),
+            np.asarray(jcam.in_image(cam_j, jnp.asarray(uv), margin)))

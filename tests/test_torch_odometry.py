@@ -1,15 +1,17 @@
-"""Port parity of the LiDAR-only odometry loop, and the port's boundaries.
+"""Port parity of the odometry loop, LiDAR-only and fused, and the port's
+boundaries.
 
 Both packages run the tiny configuration (32 x 1024, prebin, shipped
-solver defaults) on the same numpy fixture, JAX on the CPU with its Pallas
-kernel in interpret mode.  Float32 rounding differs between the backends
+solver defaults; fused: 128 x 384 images, ``klt_impl="pallas"``) on the
+same numpy fixture, JAX on the CPU with its Pallas kernels in interpret
+mode.  Float32 rounding differs between the backends
 (XLA fuses multiply-adds, the transcendental functions differ in the last
 bit), and the PCA gates on flat synthetic ground decide on exactly such
 bits, so poses are compared under tolerances, not bitwise:
 
 * one step from a shared carry: 1 cm / 0.05 deg (measured ~2 mm / 0.01 deg);
-* eight frames end to end: 5 cm / 0.1 deg on every frame, the gate of
-  ``scripts/parity_check.py``.
+* eight (fused: six) frames end to end: 5 cm / 0.1 deg on every frame,
+  the gate of ``scripts/parity_check.py``.
 """
 import dataclasses
 import os
@@ -23,9 +25,11 @@ import pytest
 import torch
 
 from velo_tpu import config as jconfig
+from velo_tpu.geom import camera as jcam
 from velo_tpu.io import fixtures
 from velo_tpu.lidar import rangeimage as jri
 from velo_tpu.pipeline import odometry as jodo
+from velo_tpu_torch.geom import camera as tcam
 from velo_tpu_torch.pipeline import odometry as todo
 
 torch.set_num_threads(1)
@@ -34,6 +38,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dataclasses.replace(jconfig.tiny_test_config(), use_vision=False,
                           use_map=True, prebin_host=True)
 N_FRAMES = 8
+FUSED = dataclasses.replace(
+    jconfig.tiny_test_config(), use_vision=True, use_map=True,
+    prebin_host=True, vision=dataclasses.replace(
+        jconfig.tiny_test_config().vision, klt_impl="pallas"))
+N_FUSED = 6
 
 
 def _pose_diff(a, b):
@@ -104,29 +113,147 @@ def test_eight_frames_end_to_end(frames, reference):
     assert worst[0] < 0.05 and worst[1] < 0.1, worst
 
 
+@pytest.fixture(scope="module")
+def fused_frames():
+    cfg = FUSED
+    fx = fixtures.make_fixture(n_frames=N_FUSED, n_rings=cfg.lidar.n_rings,
+                               n_azimuth=cfg.lidar.n_azimuth,
+                               height=cfg.vision.height,
+                               width=cfg.vision.width, seed=3)
+    frames = [jri.bin_scan_host(s, cfg.lidar) + (img,)
+              for s, img in zip(fx.scans, fx.images)]
+    return frames, fx.P, fx.T_cam_velo
+
+
+@pytest.fixture(scope="module")
+def fused_reference(fused_frames):
+    """JAX fused run: per-frame poses and n_depth, and the numpy carry
+    entering each frame."""
+    frames, P, T = fused_frames
+    cam = jcam.Camera(P=jnp.asarray(P, jnp.float32),
+                      T_cam_velo=jnp.asarray(T, jnp.float32),
+                      width=FUSED.vision.width, height=FUSED.vision.height)
+    carry = jodo.init_carry(FUSED)
+    carries, poses, n_depth = [], [], []
+    for g, v, img in frames:
+        carries.append(jax.tree.map(np.asarray, carry))
+        carry, out = jodo.jit_step(carry, jnp.asarray(g), jnp.asarray(v),
+                                   FUSED, image=jnp.asarray(img), cam=cam)
+        poses.append(np.asarray(out.T_w))
+        n_depth.append(int(out.n_depth))
+    return carries, np.stack(poses), np.array(n_depth)
+
+
+def _tcam(P, T):
+    return tcam.from_numpy(P, T, FUSED.vision.width, FUSED.vision.height,
+                           "cpu")
+
+
+@pytest.mark.parametrize("frame", [0, 1, 2, 3])
+def test_fused_single_step_from_shared_carry(fused_frames, fused_reference,
+                                             frame):
+    frames, P, T = fused_frames
+    carries, poses, n_depth = fused_reference
+    carry = todo.carry_from_jax_numpy(carries[frame], "cpu")
+    back = todo.carry_to_numpy(carry)
+    for x, y in zip(jax.tree.leaves(back.vision),
+                    jax.tree.leaves(carries[frame].vision)):
+        np.testing.assert_array_equal(x, y)
+    assert len(carry.vision.pyr) == FUSED.vision.pyr_levels
+
+    g, v, img = frames[frame]
+    new, out = todo.step(carry, torch.tensor(g), torch.tensor(v), FUSED,
+                         image=torch.tensor(img), cam=_tcam(P, T))
+    dt, dr = _pose_diff(out.T_w.numpy(), poses[frame])
+    print(f"frame {frame}: {dt:.5f} m, {dr:.5f} deg, n_depth "
+          f"{int(out.n_depth)} (JAX {n_depth[frame]})")
+    assert dt < 0.01 and dr < 0.05
+    # Track counts: one landmark may fall on either side of a gate.
+    assert abs(int(out.n_depth) - n_depth[frame]) <= 2
+    assert int(new.vision.tracks.active.sum()) > 0
+
+
+def test_fused_frames_end_to_end(fused_frames, fused_reference):
+    frames, P, T = fused_frames
+    _, ref_poses, ref_depth = fused_reference
+    poses, diags, carry = todo.run_sequence(frames, FUSED, device="cpu",
+                                            cam=_tcam(P, T))
+    assert poses.shape == (N_FUSED, 4, 4) and np.isfinite(poses).all()
+    assert (ref_depth[2:] > 0).all()
+    assert np.abs(diags["n_depth"] - ref_depth).max() <= 3
+    assert carry.vision.tracks.uv.device.type == "cpu"
+    worst = (0.0, 0.0)
+    for f in range(N_FUSED):
+        dt, dr = _pose_diff(poses[f], ref_poses[f])
+        print(f"frame {f}: {dt:.5f} m, {dr:.5f} deg")
+        worst = (max(worst[0], dt), max(worst[1], dr))
+    assert worst[0] < 0.05 and worst[1] < 0.1, worst
+
+
 def test_import_leaves_jax_out():
+    """The port runs a fixture, one fused CPU step and the KITTI metric
+    without loading JAX or any file of ``velo_tpu/``, and its fixtures
+    ignore ``VELO_FIX_ACCEL=1``."""
     code = (
-        "import sys\n"
-        "import velo_tpu_torch\n"
+        "import dataclasses, os, sys\n"
+        "import numpy as np, torch\n"
+        "import velo_tpu_torch as vt\n"
+        "from velo_tpu_torch.geom import camera\n"
+        "from velo_tpu_torch.lidar import rangeimage\n"
         "from velo_tpu_torch.pipeline import odometry\n"
-        "from velo_tpu_torch.kernels import dist_topk, _build\n"
-        "cfg = velo_tpu_torch.config.tiny_test_config()\n"
-        "velo_tpu_torch.fixtures.make_fixture(n_frames=1, n_rings=8, "
-        "n_azimuth=64, with_images=False)\n"
-        "velo_tpu_torch.kitti_metric.evaluate_trajectory\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'velo_tpu')]\n"
+        "from velo_tpu_torch.kernels import dist_topk, klt_l0, _build\n"
+        "cfg = vt.config.tiny_test_config()\n"
+        "cfg = dataclasses.replace(cfg, prebin_host=True, vision="
+        "dataclasses.replace(cfg.vision, klt_impl='pallas'))\n"
+        "fx = vt.fixtures.make_fixture(n_frames=1, n_rings=32, "
+        "n_azimuth=1024, height=128, width=384, seed=5)\n"
+        "cam = camera.from_numpy(fx.P, fx.T_cam_velo, 384, 128)\n"
+        "frame = rangeimage.bin_scan_host(fx.scans[0], cfg.lidar) "
+        "+ (fx.images[0],)\n"
+        "poses, _, carry = odometry.run_sequence([frame], cfg, "
+        "device='cpu', cam=cam)\n"
+        "assert carry.vision.tracks.active.any()\n"
+        "vt.kitti_metric.evaluate_trajectory(np.stack([np.eye(4)] * 3), "
+        "np.stack([np.eye(4)] * 3))\n"
+        "ref = os.path.join(%r, 'velo_tpu') + os.sep\n"
+        "bad = [m for m, mod in list(sys.modules.items()) if "
+        "m.split('.')[0] in ('jax', 'jaxlib', 'velo_tpu') or "
+        "(getattr(mod, '__file__', None) or '').startswith(ref)]\n"
         "assert not bad, bad\n"
-        "print('ok')\n")
+        "print('ok')\n") % REPO
     env = dict(os.environ, PYTHONPATH=REPO, VELO_FIX_ACCEL="1")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
 
 
+def test_entry_points_default_to_the_card(monkeypatch, frames):
+    """Without ``device`` the entry points take the card; without a card
+    they raise and never fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: todo.init_carry(CFG),
+                 lambda: todo.run_sequence(frames[:1], CFG),
+                 lambda: todo.carry_from_jax_numpy(None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert todo.init_carry(CFG, device="cpu").T_w.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert todo.resolve_device(None) == torch.device("cuda")
+    assert todo.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.cuda
+def test_init_carry_lands_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    carry = todo.init_carry(FUSED)
+    assert carry.T_w.is_cuda and carry.vision.tracks.uv.is_cuda
+
+
 @pytest.mark.parametrize("change", [
-    {"use_vision": True},
+    {"v:klt_impl": "matmul"},
+    {"v:klt_impl": "window"},
     {"prebin_host": False},
     {"s:ct_sweep": True},
     {"s:deskew_exact_lag": True},
@@ -141,11 +268,14 @@ def test_configs_outside_the_slice_are_refused(frames, change):
     if key.startswith("s:"):
         cfg = dataclasses.replace(CFG, solver=dataclasses.replace(
             CFG.solver, **{key[2:]: value}))
+    elif key.startswith("v:"):
+        cfg = dataclasses.replace(FUSED, vision=dataclasses.replace(
+            FUSED.vision, **{key[2:]: value}))
     else:
         cfg = dataclasses.replace(CFG, **{key: value})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        todo.init_carry(cfg)
-    carry = todo.init_carry(CFG)
+        todo.init_carry(cfg, device="cpu")
+    carry = todo.init_carry(CFG, device="cpu")
     g, v = frames[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         todo.step(carry, torch.tensor(g), torch.tensor(v), cfg)

@@ -1,11 +1,13 @@
-"""Port parity: correspondence search, local map, fits, the LM system and
-the scan-to-scan / scan-to-map solves.
+"""Port parity: correspondence search, local map, fits, the LM system
+(LiDAR-only and fused with visual tracks), the visual residuals and the
+scan-to-scan / scan-to-map solves.
 
 Solver inputs come from a synthetic box scene (ground, four walls, six
 vertical edge poles) sampled with 1 cm noise, so every PCA fit is well
 conditioned: parity here is about the arithmetic, not about eigenvalue
 gates deciding on last-bit rounding (see test_torch_odometry for that).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 
 from velo_tpu import config as jconfig
 from velo_tpu.geom import se3 as jse3
+from velo_tpu.io import fixtures
 from velo_tpu.mapping import dense_nn as jnn
 from velo_tpu.mapping import local_map as jlm
 from velo_tpu.mapping import voxel_hash as jvh
@@ -213,7 +216,43 @@ def test_fit_line_and_plane():
         np.testing.assert_allclose(out_t[3], out_j[3], atol=5e-3)
 
 
-def _linearization(scene, mod, conv, se3mod):
+def _tracks():
+    """Visual tracks of the fused solve: landmarks in front of the camera
+    in the previous velodyne frame, their previous pixels, and noisy
+    current observations at the true motion; 60 % carry depth."""
+    rng = np.random.default_rng(31)
+    P, T_cv = fixtures.default_calib(128, 384)
+    k = 128
+    X = np.stack([rng.uniform(6, 35, k), rng.uniform(-8, 8, k),
+                  rng.uniform(-1.5, 3, k)], -1)
+    T_true = np.asarray(jse3.exp(_j(XI_TRUE)), np.float64)
+
+    def pix(Xv):
+        Xc = Xv @ T_cv[:3, :3].T + T_cv[:3, 3]
+        x = Xc @ P[:, :3].T + P[:, 3]
+        return x[:, :2] / x[:, 2:3]
+
+    X_cur = (X - T_true[:3, 3]) @ T_true[:3, :3]  # T_true^-1 X
+    obs = pix(X_cur) + rng.normal(0, 0.3, (k, 2))
+    depth = rng.random(k) < 0.6
+    return dict(X=X.astype(np.float32), uv_prev=pix(X).astype(np.float32),
+                obs=obs.astype(np.float32), depth=depth,
+                nodepth=~depth & (rng.random(k) < 0.9),
+                w_lm=rng.uniform(0.3, 1, k).astype(np.float32),
+                P=P.astype(np.float32), T_cv=T_cv.astype(np.float32))
+
+
+def _vis(mod, conv, w_scale):
+    tr = _tracks()
+    return mod.VisData(xyz_prev_velo=conv(tr["X"]), obs_uv=conv(tr["obs"]),
+                       mask=conv(tr["depth"]), P=conv(tr["P"]),
+                       T_cam_velo=conv(tr["T_cv"]),
+                       uv_prev=conv(tr["uv_prev"]),
+                       mask_nodepth=conv(tr["nodepth"]), w_scale=w_scale,
+                       w_lm=conv(tr["w_lm"]))
+
+
+def _linearization(scene, mod, conv, se3mod, vis=None):
     """Correspondences of one outer iteration at T0, for either package."""
     T0 = se3mod.exp(conv(XI_TRUE * 0.9))
     ec = mod.build_candidates(_targets(scene, mod, conv, "edge"),
@@ -229,13 +268,18 @@ def _linearization(scene, mod, conv, se3mod):
         conv(scene["pqm"]), SC.map_knn)
     sys = mod.make_lidar_system(conv(scene["eq"]), conv(scene["eqm"]), a, b,
                                 e_ok, conv(scene["pq"]), conv(scene["pqm"]),
-                                n, d, p_ok, SC, planar_q=p_q)
+                                n, d, p_ok, SC, vis=vis, planar_q=p_q)
     return T0, sys, (e_ok, p_ok)
 
 
-def test_lidar_system_and_stage(scene):
-    Tj, sys_j, okj = _linearization(scene, jicp, _j, jse3)
-    Tt, sys_t, okt = _linearization(scene, ticp, _t, tse3)
+@pytest.mark.parametrize("fused", [False, True])
+def test_lidar_system_and_stage(scene, fused):
+    """H, g and cost at one linearization, LiDAR-only and with the visual
+    reprojection and epipolar blocks (fused)."""
+    vj = _vis(jicp, _j, jnp.float32(0.75)) if fused else None
+    vt = _vis(ticp, _t, torch.tensor(0.75)) if fused else None
+    Tj, sys_j, okj = _linearization(scene, jicp, _j, jse3, vis=vj)
+    Tt, sys_t, okt = _linearization(scene, ticp, _t, tse3, vis=vt)
     for a, b in zip(okt, okj):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     prior_T = XI_TRUE * 0.8
@@ -302,3 +346,74 @@ def test_solves(scene, which):
             <= 0.01 * int(getattr(d_j, f)), f
     T_true = np.asarray(jse3.exp(_j(XI_TRUE)))
     assert np.abs(T_t.numpy() - T_true).max() < 0.02
+
+
+def test_reprojection_matches_reference():
+    tr = _tracks()
+    rng = np.random.default_rng(32)
+    Xc = (tr["X"] @ tr["T_cv"][:3, :3].T + tr["T_cv"][:3, 3]).astype(
+        np.float32)
+    Xc[:6, 2] = [0.0, 0.05, 0.1, 0.11, -3.0, 1e-9]  # the z > 0.1 gate
+    valid = rng.random(len(Xc)) < 0.9
+    rj, dj, okj = jres.reprojection(_j(Xc), _j(tr["P"]), _j(tr["obs"]),
+                                    _j(valid))
+    rt, dt, okt = tres.reprojection(_t(Xc), _t(tr["P"]), _t(tr["obs"]),
+                                    _t(valid))
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    # Pixels of points up to 35 m through fx ~ 2e2: float32 leaves ~1e-4 px.
+    np.testing.assert_allclose(rt.numpy(), np.asarray(rj), atol=2e-4)
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _epi_inputs(xi):
+    tr = _tracks()
+    T = np.asarray(jse3.exp(_j(np.asarray(xi, np.float32))), np.float32)
+    T_vc = np.linalg.inv(tr["T_cv"].astype(np.float64)).astype(np.float32)
+    A = (tr["T_cv"].astype(np.float64)
+         @ np.linalg.inv(T.astype(np.float64))).astype(np.float32)
+    return tr, T, T_vc, A
+
+
+@pytest.mark.parametrize("xi", ["true", "still"])
+def test_epipolar_matches_reference(xi):
+    """The residual, against JAX; "still" has no baseline, so every track
+    is masked."""
+    tr, T, T_vc, A = _epi_inputs(XI_TRUE if xi == "true" else np.zeros(6))
+    M = (A.astype(np.float64) @ T_vc).astype(np.float32)
+    K = tr["P"][:3, :3]
+    rj, okj = jres.epipolar(_j(M), _j(K), _j(tr["uv_prev"]), _j(tr["obs"]),
+                            _j(tr["nodepth"]))
+    rt, okt = tres.epipolar(_t(M), _t(K), _t(tr["uv_prev"]), _t(tr["obs"]),
+                            _t(tr["nodepth"]))
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    assert okt.numpy().any() == (xi == "true")
+    # Float32 E and lines in JAX against float64 in the port: 1e-3 px.
+    np.testing.assert_allclose(rt.numpy(), np.asarray(rj), atol=1e-3)
+
+
+def test_epipolar_jacobian_matches_jacfwd():
+    """The port's analytic epipolar Jacobian against ``jax.jacfwd`` of the
+    reference's residual over the six left-perturbation parameters, as
+    ``_vis_prior_terms6`` takes it."""
+    tr, T, T_vc, A = _epi_inputs(XI_TRUE * 0.9)
+    K = tr["P"][:3, :3]
+    T_cv = _j(tr["T_cv"])
+
+    def epi(x):
+        M = T_cv @ jse3.inv(jse3.exp(x) @ _j(T)) @ _j(T_vc)
+        return jres.epipolar(M, _j(K), _j(tr["uv_prev"]), _j(tr["obs"]),
+                             _j(tr["nodepth"]))[0]
+
+    J_j = np.asarray(jax.jacfwd(epi)(jnp.zeros(6, jnp.float32)))
+    _, ok = tres.epipolar(_t(A.astype(np.float64) @ T_vc), _t(K),
+                          _t(tr["uv_prev"]), _t(tr["obs"]),
+                          _t(tr["nodepth"]))
+    J_t = tres.epipolar_jacobian(_t(A), _t(T_vc), _t(K), _t(tr["uv_prev"]),
+                                 _t(tr["obs"]), ok).numpy()
+    assert ok.numpy().sum() > 20
+    assert not J_t[~ok.numpy()].any() and not J_j[~ok.numpy()].any()
+    # jacfwd runs in float32 through exp, inv and three 4x4 products:
+    # 1e-3 of each column's scale.
+    scale = np.abs(J_j).max(0, keepdims=True)
+    np.testing.assert_allclose(J_t, J_j, atol=1e-3 * scale.max(), rtol=1e-3)

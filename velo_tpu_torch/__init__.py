@@ -2,14 +2,19 @@
 
 The JAX package ``velo_tpu`` stays the reference; this package mirrors its
 sub-packages and function names (``geom``, ``lidar``, ``mapping``, ``solve``,
-``pipeline``, with ``kernels`` in place of ``pallas``) and imports ``torch``,
-never ``jax``.  Functions take tensors on an explicit device and keep the
-reference's layouts at their interfaces: float32 points, bool masks and
+``vision``, ``pipeline``, ``io``, ``evaluation``, with ``kernels`` in place
+of ``pallas``) and imports ``torch``, never ``jax`` and nothing of
+``velo_tpu``: the framework-free modules it needs (``config``,
+``io.fixtures``, ``evaluation.kitti_metric``) are its own copies.
+Functions take tensors on an explicit device and keep the reference's
+layouts at their interfaces: float32 points and images, bool masks and
 int32 indices.
 
-The one hand-written kernel of the LiDAR-only path is ``kernels.dist_topk``
-(CUDA C++ for sm_90a, built at first use from ``csrc/``).  On a CPU tensor
-its wrapper runs the plain PyTorch version instead.
+Both Pallas kernels of the reference have hand-written CUDA C++
+counterparts for sm_90a, built at first use from ``csrc/``:
+``kernels.dist_topk`` (candidate search, LiDAR path) and
+``kernels.klt_l0`` (level-0 KLT, fused path with ``klt_impl="pallas"``).
+On a CPU tensor each wrapper runs its plain PyTorch version instead.
 """
 import torch as _torch
 
@@ -20,6 +25,8 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from velo_tpu_torch._shared import config, fixtures, kitti_metric  # noqa: E402,F401
+from velo_tpu_torch import config  # noqa: E402,F401
+from velo_tpu_torch.evaluation import kitti_metric  # noqa: E402,F401
+from velo_tpu_torch.io import fixtures  # noqa: E402,F401
 
 __version__ = "0.1.0"

@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC
+         -Xcompiler -fPIC -Xptxas -v
 
 into ``velo_tpu_torch/_build/lib<name>-<sha>.so``, where ``<sha>`` is a
 hash of the source: an edited source is rebuilt, an unchanged one is
@@ -26,10 +26,11 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
+build_logs: dict[str, str] = {}  # nvcc's output (-Xptxas -v: registers)
 
 
 def _nvcc() -> str:
@@ -49,23 +50,51 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{sha}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless this source is already built."""
+def _start(name: str):
+    """Start nvcc for ``csrc/<name>.cu`` -> (output, temp, process, t0), or
+    None when this source is already built."""
     out = library_path(name)
     if out.exists():
-        return out
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, tmp, proc, time.perf_counter()
+
+
+def _finish(name: str, job) -> Path:
+    out, tmp, proc, t0 = job
+    log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}")
+            f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: concurrent builders never see a torn file
     build_seconds[name] = time.perf_counter() - t0
+    build_logs[name] = log
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless this source is already built."""
+    return build_all([name])[name]
+
+
+def build_all(names) -> dict[str, Path]:
+    """Compile several sources at once: one nvcc process each, all started
+    before any is awaited."""
+    jobs = {name: _start(name) for name in names}
+    built, errors = {}, []
+    for name, job in jobs.items():  # wait for every process, then report
+        try:
+            built[name] = (library_path(name) if job is None
+                           else _finish(name, job))
+        except RuntimeError as err:
+            errors.append(str(err))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return built
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,17 +1,22 @@
-"""LiDAR-only odometry step and frame loop
-(port of ``velo_tpu/pipeline/odometry.py`` with ``use_vision=False``).
+"""Odometry step and frame loop (port of ``velo_tpu/pipeline/odometry.py``).
 
 Per frame: deskew the host-pre-binned (R, W, 5) grid into a range image ->
-curvature -> edge/planar features -> one candidate search per target set
--> scan-to-scan solve, redeskew, re-solve -> plausibility gate ->
-scan-to-map refinement -> velocity update -> map insert/maintain.
+curvature -> edge/planar features -> [fused: image pyramid, forward-
+backward KLT of the track table, consensus pre-gate of the depth tracks]
+-> one candidate search per target set -> scan-to-scan solve (+ visual
+reprojection and epipolar blocks), redeskew, re-solve -> plausibility gate
+-> scan-to-map refinement -> velocity update -> map insert/maintain ->
+[fused: LiDAR depth at the tracked pixels, corner replenishment].
 
+``use_vision=True`` is the fused, vision-enhanced pipeline; with
+``klt_impl="pallas"`` its level-0 KLT runs the ``kernels.klt_l0`` kernel.
 The carry is a fixed-shape tuple of tensors on one device.  The
 reference's ``lax.cond`` cadences (map refinement every k frames, map
 maintenance every k frames) become Python branches on ``frame_host``, a
 host-side copy of the frame counter; data-dependent gates (has_map,
 map_applied, implausible) stay ``torch.where``, so a step never waits for
-the device.
+the device.  ``init_carry`` and ``run_sequence`` run on the card unless
+the caller passes another device.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from velo_tpu_torch import fp
+from velo_tpu_torch.geom import camera as cam_mod
 from velo_tpu_torch.geom import se3
 from velo_tpu_torch.lidar import curvature as curv_mod
 from velo_tpu_torch.lidar import deskew as deskew_mod
@@ -28,8 +34,20 @@ from velo_tpu_torch.lidar import features as feat_mod
 from velo_tpu_torch.lidar import rangeimage as ri_mod
 from velo_tpu_torch.mapping import local_map
 from velo_tpu_torch.solve import icp
+from velo_tpu_torch.solve import residuals as res
+from velo_tpu_torch.vision import corners as corners_mod
+from velo_tpu_torch.vision import depth_assoc
+from velo_tpu_torch.vision import klt as klt_mod
+from velo_tpu_torch.vision import pyramid as pyr_mod
+from velo_tpu_torch.vision import tracks as tracks_mod
 
 _ITEM8 = "ROADMAP.md Queue 1 item 8 (off-default solver variants)"
+
+
+class VisionCarry(NamedTuple):
+    pyr: tuple  # previous image pyramid
+    grads: tuple  # per-level (gx, gy) of the previous pyramid
+    tracks: tracks_mod.TrackTable
 
 
 class OdomCarry(NamedTuple):
@@ -45,6 +63,7 @@ class OdomCarry(NamedTuple):
     edge_map: local_map.LocalMap
     planar_map: local_map.LocalMap
     frame_idx: torch.Tensor  # scalar int32, on the device
+    vision: VisionCarry | None = None  # fused path only
     frame_host: int = 0  # the same counter on the host (cadence branches)
 
 
@@ -61,7 +80,7 @@ class FrameResult(NamedTuple):
     implausible: torch.Tensor  # plausibility gate fired
     map_applied: torch.Tensor  # scan-to-map correction applied
     prior_active: torch.Tensor  # motion outside the prior's dead zone
-    n_depth: torch.Tensor  # depth-augmented tracks (0: no vision here)
+    n_depth: torch.Tensor  # depth tracks past the pre-gate (0: no vision)
     vis_w_scale: torch.Tensor  # reprojection trust scale (1: no vision)
 
 
@@ -69,8 +88,7 @@ def check_slice(cfg) -> None:
     """Raise NotImplementedError for configurations this port lacks."""
     sc = cfg.solver
     if cfg.use_vision:
-        raise NotImplementedError(
-            "use_vision=True: the fused slice is ROADMAP.md Queue 1 item 7")
+        klt_mod.check_impl(cfg.vision)
     if not cfg.prebin_host:
         raise NotImplementedError(
             f"prebin_host=False: the raw-scan range image is {_ITEM8}")
@@ -91,8 +109,21 @@ def check_slice(cfg) -> None:
             "port (ROADMAP.md, 'Not to port')")
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the card when None.  Never falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run it on the CPU")
+    return torch.device("cuda")
+
+
 def init_carry(cfg, device=None) -> OdomCarry:
+    """The carry before frame 0, on ``device`` (default: the card)."""
     check_slice(cfg)
+    device = resolve_device(device)
     lc = cfg.lidar
     ke = lc.k_edge * lc.target_mult
     kp = lc.k_planar * lc.target_mult
@@ -100,6 +131,13 @@ def init_carry(cfg, device=None) -> OdomCarry:
     def zeros(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    vision = None
+    if cfg.use_vision:
+        vc = cfg.vision
+        pyr = pyr_mod.build_pyramid(zeros((vc.height, vc.width)),
+                                    vc.pyr_levels)
+        vision = VisionCarry(pyr=pyr, grads=klt_mod.frame_gradients(pyr),
+                             tracks=tracks_mod.empty_tracks(vc, device))
     return OdomCarry(
         T_w=se3.identity(device=device),
         delta=zeros(6),
@@ -113,6 +151,7 @@ def init_carry(cfg, device=None) -> OdomCarry:
         edge_map=local_map.empty_map(cfg.map.edge_capacity, device),
         planar_map=local_map.empty_map(cfg.map.planar_capacity, device),
         frame_idx=zeros((), torch.int32),
+        vision=vision,
         frame_host=0,
     )
 
@@ -129,20 +168,112 @@ def _masked(pts, mask):
     return torch.where(mask[:, None], pts, 0.0)
 
 
-def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg):
+def _nanmedian0(a: torch.Tensor) -> torch.Tensor:
+    """``jnp.nanmedian(a, axis=0)``: over the non-NaN entries of each
+    column, the middle one, or the mean of the two middle ones (0.5 a +
+    0.5 b, as JAX's linear quantile); NaN for a column without any.
+    ``torch.nanmedian`` returns the lower middle value instead."""
+    srt, _ = torch.sort(a, dim=0)  # NaNs sort last
+    n = torch.sum(~torch.isnan(a), dim=0).to(a.dtype)
+    q = 0.5 * (n - 1.0)
+    lo, hi = torch.floor(q), torch.ceil(q)
+    w_hi = q - lo
+    w_lo = 1.0 - w_hi
+
+    def at(i):
+        i = torch.clamp(torch.minimum(i, n - 1.0), min=0.0).long()
+        return torch.gather(srt, 0, i[None])[0]
+
+    return at(lo) * w_lo + at(hi) * w_hi
+
+
+def _visual_front_end(carry, image, cam, T_pred, cfg):
+    """Pyramid + forward-backward KLT of the track table, then the
+    consensus pre-gate of the depth tracks at the predicted pose.
+    Returns (cur_pyr, cur_grads, table, VisData, n_dep, w_scale)."""
+    vc, sc = cfg.vision, cfg.solver
+    vcar = carry.vision
+    cur_pyr = pyr_mod.build_pyramid(image, vc.pyr_levels)
+    cur_grads = klt_mod.frame_gradients(cur_pyr)
+    tr = klt_mod.track(vcar.pyr, cur_pyr, vcar.grads, cur_grads,
+                       vcar.tracks.uv, vcar.tracks.active, vc)
+    table = tracks_mod.after_tracking(vcar.tracks, tr.uv, tr.ok)
+    tracked = table.active & (carry.frame_idx > 0)
+    depth_mask = tracked & vcar.tracks.has_depth
+    # A landmark with a wrong interpolated depth reprojects away from where
+    # the other tracks agree it should: gate on the deviation from the
+    # median residual, not on its size (a wrong prediction moves them all).
+    Y_pred = se3.apply(se3.inv(T_pred), vcar.tracks.prev_xyz_velo)
+    Xc_pred = se3.apply(cam.T_cam_velo, Y_pred)
+    r_pred, _, ok_pred = res.reprojection(Xc_pred, cam.P, table.uv,
+                                          depth_mask)
+    big = 1e6
+    r_m = torch.where((depth_mask & ok_pred)[:, None], r_pred, big)
+    med = _nanmedian0(torch.where(r_m < big * 0.5, r_m, torch.nan))
+    med = torch.nan_to_num(med)  # no valid tracks: gate around zero
+    depth_mask = depth_mask & ok_pred & (
+        fp.norm(r_pred - med[None, :]) < sc.vis_pregate_px)
+    # Reprojection trust ramp over [lo, hi] surviving depth tracks.
+    n_dep = torch.sum(depth_mask, dtype=torch.int32)
+    w_scale = torch.clamp(
+        fp.div(n_dep.to(torch.float32) - float(sc.vis_depth_lo),
+               max(float(sc.vis_depth_hi - sc.vis_depth_lo), 1.0)),
+        0.0, 1.0)
+    # Per-landmark inverse-variance weight from the depth sensitivity.
+    q = fp.div(vcar.tracks.depth_grad, sc.vis_grad_soft)
+    w_lm = 1.0 / (1.0 + q * q)
+    vis = icp.VisData(
+        xyz_prev_velo=vcar.tracks.prev_xyz_velo, obs_uv=table.uv,
+        mask=depth_mask, P=cam.P, T_cam_velo=cam.T_cam_velo,
+        uv_prev=vcar.tracks.uv,
+        mask_nodepth=tracked & ~vcar.tracks.has_depth,
+        w_scale=w_scale, w_lm=w_lm)
+    return cur_pyr, cur_grads, table, vis, n_dep, w_scale
+
+
+def _visual_bookkeeping(ri, table, image, cam, cfg) -> tracks_mod.TrackTable:
+    """LiDAR depth at the tracked pixels, then corners into free slots."""
+    vc = cfg.vision
+    dgrid = depth_assoc.build_depth_grid_from_ri(ri, cam, vc,
+                                                 az_start=cfg.lidar.az_start)
+    dres = depth_assoc.associate(dgrid, table.uv, table.active, cam, vc)
+    X_velo = se3.apply(se3.inv(cam.T_cam_velo), dres.xyz_cam)
+    table = table._replace(
+        prev_xyz_velo=torch.where(dres.ok[:, None], X_velo,
+                                  table.prev_xyz_velo),
+        has_depth=dres.ok,
+        depth_grad=torch.where(dres.ok, dres.grad, 0.0))
+    return tracks_mod.replenish(table, corners_mod.detect(image, vc), vc)
+
+
+def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg,
+         image: torch.Tensor | None = None,
+         cam: cam_mod.Camera | None = None):
     """Process one frame: ``scan`` is a host-pre-binned (R, W, 5) grid and
-    ``scan_mask`` its (R, W) validity (``rangeimage.bin_scan_host``), on the
-    carry's device.  Returns (new_carry, FrameResult)."""
+    ``scan_mask`` its (R, W) validity (``rangeimage.bin_scan_host``); with
+    ``cfg.use_vision``, ``image`` is the (H, W) float32 grayscale frame and
+    ``cam`` its calibration.  All on the carry's device.  Returns
+    (new_carry, FrameResult)."""
     check_slice(cfg)
     sc = cfg.solver
     dev = carry.T_w.device
     fi = carry.frame_idx
+    if cfg.use_vision and (image is None or cam is None):
+        raise ValueError("use_vision=True: step needs image= and cam=")
 
     # 1-2) Deskew with the predicted motion, then the LiDAR front end.
     ri = ri_mod.range_image_from_grid(scan, scan_mask, carry.delta,
                                       cfg.lidar, enabled=cfg.use_deskew)
     feats, tfeats = _extract_features_from_ri(ri, cfg)
     T_pred = se3.exp(carry.delta)
+
+    # 2v) Visual front end: pyramid, KLT, reprojection data.
+    vis = None
+    n_dep = torch.zeros((), dtype=torch.int32, device=dev)
+    w_scale = torch.ones((), device=dev)
+    if cfg.use_vision:
+        cur_pyr, cur_grads, table, vis, n_dep, w_scale = _visual_front_end(
+            carry, image, cam, T_pred, cfg)
 
     # 3) Scan-to-scan solve vs the previous features, with one global
     # candidate search per target set shared by both solves.
@@ -161,8 +292,9 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg):
     prior_scale = (fi >= 2).to(torch.float32)
     T_rel, diag = icp.solve_scan_to_scan(
         feats.edges, feats.edge_mask, feats.planars, feats.planar_mask,
-        edge_targets, planar_targets, T_pred, sc, edge_cands=e_cands,
-        planar_cands=p_cands, prior_T=T_pred, prior_scale=prior_scale)
+        edge_targets, planar_targets, T_pred, sc, vis=vis,
+        edge_cands=e_cands, planar_cands=p_cands, prior_T=T_pred,
+        prior_scale=prior_scale)
     deskew_ref = carry.delta
     if cfg.use_deskew:
         # Deskew/solve fixed point: re-correct the features with the solved
@@ -183,7 +315,7 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg):
                         tfeats.planar_mask))
         T_rel, diag = icp.solve_scan_to_scan(
             feats.edges, feats.edge_mask, feats.planars, feats.planar_mask,
-            edge_targets, planar_targets, T_rel, sc,
+            edge_targets, planar_targets, T_rel, sc, vis=vis,
             iters=sc.icp_iters_redeskew, edge_cands=e_cands,
             planar_cands=p_cands, prior_T=T_pred, prior_scale=prior_scale)
         deskew_ref = delta1
@@ -260,6 +392,13 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg):
                                             cfg.map.voxel_planar,
                                             cfg.map.crop_radius)
 
+    # 8) Visual bookkeeping for the next frame.
+    new_vision = carry.vision
+    if cfg.use_vision:
+        new_vision = VisionCarry(
+            pyr=cur_pyr, grads=cur_grads,
+            tracks=_visual_bookkeeping(ri, table, image, cam, cfg))
+
     new_carry = OdomCarry(
         T_w=T_w,
         delta=delta_new,
@@ -273,6 +412,7 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg):
         edge_map=edge_map,
         planar_map=planar_map,
         frame_idx=fi + 1,
+        vision=new_vision,
         frame_host=carry.frame_host + 1,
     )
     result = FrameResult(
@@ -280,28 +420,38 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg):
         cost=diag.cost, degenerate=diag.degenerate,
         lm_accept=diag.lm_accept, lm_accept_map=lm_accept_map,
         implausible=implausible, map_applied=map_applied,
-        prior_active=prior_active, n_depth=zero_i,
-        vis_w_scale=torch.ones((), device=dev),
+        prior_active=prior_active, n_depth=n_dep, vis_w_scale=w_scale,
     )
     return new_carry, result
 
 
-def run_sequence(frames, cfg, carry: OdomCarry | None = None, device=None):
-    """Stream numpy (grid, valid) frames through :func:`step`.
+def run_sequence(frames, cfg, carry: OdomCarry | None = None, device=None,
+                 cam: cam_mod.Camera | None = None):
+    """Stream numpy frames through :func:`step`: (grid, valid) pairs, or
+    (grid, valid, image) triples with ``cfg.use_vision`` and its ``cam``.
 
-    The port's stand-in for ``run_sequence_host``.  Per-frame results stay
-    on the device until the end, so the loop never waits for it.
-    Returns (poses (F,4,4) numpy, diagnostics dict of numpy arrays, final
-    carry).
+    The port's stand-in for ``run_sequence_host``.  Without a ``carry`` it
+    starts from :func:`init_carry` on ``device`` (default: the card).
+    Per-frame results stay on the device until the end, so the loop never
+    waits for it.  Returns (poses (F,4,4) numpy, diagnostics dict of numpy
+    arrays, final carry).
     """
     if carry is None:
         carry = init_carry(cfg, device)
     dev = carry.T_w.device
+    if cfg.use_vision:
+        if cam is None:
+            raise ValueError("use_vision=True: run_sequence needs cam=")
+        cam = cam.to(dev)
+
+    def put(x, dtype):
+        return torch.as_tensor(np.asarray(x, dtype)).to(dev)
+
     outs = []
     for frame in frames:
-        scan = torch.as_tensor(np.asarray(frame[0], np.float32)).to(dev)
-        mask = torch.as_tensor(np.asarray(frame[1], bool)).to(dev)
-        carry, out = step(carry, scan, mask, cfg)
+        image = put(frame[2], np.float32) if cfg.use_vision else None
+        carry, out = step(carry, put(frame[0], np.float32),
+                          put(frame[1], bool), cfg, image=image, cam=cam)
         outs.append(out)
     stacked = {k: torch.stack([getattr(o, k) for o in outs]).cpu().numpy()
                for k in FrameResult._fields}
@@ -311,7 +461,10 @@ def run_sequence(frames, cfg, carry: OdomCarry | None = None, device=None):
 
 def carry_from_jax_numpy(tree, device=None) -> OdomCarry:
     """The port's carry from a reference ``OdomCarry`` whose leaves are
-    numpy arrays (``jax.tree.map(np.asarray, carry)``)."""
+    numpy arrays (``jax.tree.map(np.asarray, carry)``), on ``device``
+    (default: the card), ``VisionCarry`` included."""
+    device = resolve_device(device)
+
     def t(x):
         return torch.tensor(np.asarray(x), device=device)
 
@@ -319,11 +472,18 @@ def carry_from_jax_numpy(tree, device=None) -> OdomCarry:
         return local_map.LocalMap(pts=t(m.pts), mask=t(m.mask),
                                   cursor=t(m.cursor))
 
+    vision = None
+    if getattr(tree, "vision", None) is not None:
+        v = tree.vision
+        vision = VisionCarry(
+            pyr=tuple(t(x) for x in v.pyr),
+            grads=tuple((t(gx), t(gy)) for gx, gy in v.grads),
+            tracks=tracks_mod.TrackTable(*(t(x) for x in v.tracks)))
     return OdomCarry(
         **{f: t(getattr(tree, f)) for f in OdomCarry._fields
-           if f not in ("edge_map", "planar_map", "frame_host")},
+           if f not in ("edge_map", "planar_map", "vision", "frame_host")},
         edge_map=lmap(tree.edge_map), planar_map=lmap(tree.planar_map),
-        frame_host=int(np.asarray(tree.frame_idx)),
+        vision=vision, frame_host=int(np.asarray(tree.frame_idx)),
     )
 
 
@@ -335,10 +495,18 @@ def carry_to_numpy(carry: OdomCarry) -> OdomCarry:
     def lmap(m):
         return local_map.LocalMap(*(n(x) for x in m))
 
+    vision = None
+    if carry.vision is not None:
+        v = carry.vision
+        vision = VisionCarry(
+            pyr=tuple(n(x) for x in v.pyr),
+            grads=tuple((n(gx), n(gy)) for gx, gy in v.grads),
+            tracks=tracks_mod.TrackTable(*(n(x) for x in v.tracks)))
     return carry._replace(
         **{f: n(getattr(carry, f)) for f in OdomCarry._fields
-           if f not in ("edge_map", "planar_map", "frame_host")},
-        edge_map=lmap(carry.edge_map), planar_map=lmap(carry.planar_map))
+           if f not in ("edge_map", "planar_map", "vision", "frame_host")},
+        edge_map=lmap(carry.edge_map), planar_map=lmap(carry.planar_map),
+        vision=vision)
 
 
 def velo_to_cam_trajectory(poses_velo: np.ndarray,

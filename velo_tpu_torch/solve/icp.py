@@ -1,12 +1,14 @@
 """Outer ICP loops: scan-to-scan and scan-to-map solves
-(port of the LiDAR dense-engine path of ``velo_tpu/solve/icp.py``).
+(port of the dense-engine path of ``velo_tpu/solve/icp.py``).
 
 Each solve is an outer loop that re-searches correspondences after every
 pose update around an inner LM solve.  The global search runs once per
 target set (``build_candidates``: the ``dist_topk`` kernel at the initial
 pose, 16 candidates per query); the outer iterations re-rank only those
 candidates.  The solved variable ``T_target_cur`` maps current-scan
-coordinates into the target frame (previous scan, or map/world).
+coordinates into the target frame (previous scan, or map/world).  With
+``vis`` (the fused path) the scan-to-scan system also carries the visual
+reprojection and epipolar blocks.
 """
 from __future__ import annotations
 
@@ -36,6 +38,25 @@ class SolveDiag(NamedTuple):
     cost: torch.Tensor
     degenerate: torch.Tensor
     lm_accept: torch.Tensor | int = 0  # LM steps accepted over all outer iters
+
+
+class VisData(NamedTuple):
+    """Depth-augmented visual tracks for the joint solve.
+
+    Landmarks live in the *previous* velodyne frame; observations are the
+    KLT positions in the current image.  The solved T maps current ->
+    previous frame, so a landmark is pulled back through T^-1.
+    """
+
+    xyz_prev_velo: torch.Tensor  # (K, 3)
+    obs_uv: torch.Tensor  # (K, 2)
+    mask: torch.Tensor  # (K,) depth-augmented tracks (reprojection residual)
+    P: torch.Tensor  # (3, 4) camera projection
+    T_cam_velo: torch.Tensor  # (4, 4)
+    uv_prev: torch.Tensor | None = None  # (K, 2) for the epipolar residual
+    mask_nodepth: torch.Tensor | None = None  # (K,) tracks without depth
+    w_scale: torch.Tensor | float = 1.0  # reprojection trust scale
+    w_lm: torch.Tensor | float = 1.0  # per-landmark inverse-variance weight
 
 
 class CandCache(NamedTuple):
@@ -140,10 +161,9 @@ def _prior_weights(cfg, prior_T, prior_scale):
 
 
 def _prior_terms6(T, cfg, w_prior, prior_inv, H_obs):
-    """(H, g, cost) of the dead-zone motion prior: the prior half of the
-    reference's ``_vis_prior_terms6`` (its visual half is not in this
-    slice).  ``H_obs`` is the geometric Hessian that the observability-
-    scaled prior eigen-analyzes."""
+    """(H, g, cost) of the dead-zone motion prior.  ``H_obs`` is the
+    prior-less Hessian (geometric + visual) that the observability-scaled
+    prior eigen-analyzes."""
     r_pr = se3.log(se3.compose(T, prior_inv))
     if cfg.prior_obs_gain > 0.0:
         return _obs_scaled_prior(cfg, w_prior, r_pr, H_obs)
@@ -162,6 +182,52 @@ def _prior_terms6(T, cfg, w_prior, prior_inv, H_obs):
     return H, g, 0.5 * fp.sum(w_prior * r_eff * r_eff)
 
 
+def _vis_terms6(T, cfg, vis: VisData):
+    """(H, g, cost) of the visual blocks (the visual half of the
+    reference's ``_vis_prior_terms6``): Huber-weighted reprojection of the
+    depth-augmented tracks and, for tracks without depth, the epipolar
+    residual."""
+    H = torch.zeros((6, 6), dtype=T.dtype, device=T.device)
+    g = torch.zeros((6,), dtype=T.dtype, device=T.device)
+    cost = torch.zeros((), dtype=T.dtype, device=T.device)
+    T_inv = se3.inv(T)
+    # Reprojection: r = pi(P, T_cv T^-1 X_prev) - obs, with the left-
+    # perturbation chain dX_cam/dxi = -R_cv R^T [I | -hat(X_prev)].
+    Y = se3.apply(T_inv, vis.xyz_prev_velo)
+    X_cam = se3.apply(vis.T_cam_velo, Y)
+    rv, dr_dX, okv = res.reprojection(X_cam, vis.P, vis.obs_uv, vis.mask)
+    A = -fp.matmul(vis.T_cam_velo[:3, :3], T[:3, :3].T)
+    dX_dxi = fp.einsum("ij,kjl->kil", A,
+                       res.point_jacobian(vis.xyz_prev_velo))  # (K,3,6)
+    Jv = fp.einsum("kri,kil->krl", dr_dX, dX_dxi)  # (K,2,6)
+    rnorm = fp.norm(rv)
+    # Huber, not a redescending loss: a badly wrong prediction makes every
+    # visual residual large in the same direction, and that is signal.
+    wv = (res.huber_weight(rnorm, cfg.huber_delta_repr) * okv * vis.w_lm
+          * (cfg.vis_weight * vis.w_scale))
+    H = H + fp.einsum("k,kri,krj->ij", wv, Jv, Jv)
+    g = g + fp.einsum("k,kri,kr->i", wv, Jv, rv)
+    cost = cost + cfg.vis_weight * vis.w_scale * fp.sum(
+        res.huber_cost(rnorm, cfg.huber_delta_repr) * okv * vis.w_lm)
+
+    if vis.uv_prev is not None and cfg.epi_weight > 0:
+        # Depth-unknown tracks: M = T_cv T^-1 T_vc (prev cam -> cur cam).
+        Kmat = vis.P[:3, :3]
+        T_vc = se3.inv(vis.T_cam_velo)
+        A4 = se3.compose(vis.T_cam_velo, T_inv)
+        re_, oke_ = res.epipolar(se3.compose(A4, T_vc), Kmat, vis.uv_prev,
+                                 vis.obs_uv, vis.mask_nodepth)
+        Jep = res.epipolar_jacobian(A4, T_vc, Kmat, vis.uv_prev, vis.obs_uv,
+                                    oke_)  # (K, 6)
+        wep = res.huber_weight(re_, cfg.huber_delta_repr) * oke_ \
+            * cfg.epi_weight
+        H = H + fp.einsum("k,ki,kj->ij", wep, Jep, Jep)
+        g = g + fp.einsum("k,ki,k->i", wep, Jep, re_)
+        cost = cost + cfg.epi_weight * fp.sum(
+            res.huber_cost(re_, cfg.huber_delta_repr) * oke_)
+    return H, g, cost
+
+
 def _chain(dr: torch.Tensor, J: torch.Tensor) -> torch.Tensor:
     """(K,3) dr/dp times (K,3,6) dp/dxi -> (K,6), summed in a fixed order."""
     return (dr[:, 0:1] * J[:, 0] + dr[:, 1:2] * J[:, 1]) + dr[:, 2:3] * J[:, 2]
@@ -169,12 +235,13 @@ def _chain(dr: torch.Tensor, J: torch.Tensor) -> torch.Tensor:
 
 def make_lidar_system(edges, edge_mask, line_a, line_b, line_ok,
                       planars, planar_mask, pl_n, pl_d, pl_ok, cfg,
-                      edge_q=None, planar_q=None, prior_T=None,
-                      prior_scale=None):
-    """Closure: T -> (H, g, cost) for fixed LiDAR correspondences.
+                      vis: VisData | None = None, edge_q=None, planar_q=None,
+                      prior_T=None, prior_scale=None):
+    """Closure: T -> (H, g, cost) for fixed LiDAR (+ visual) correspondences.
 
-    ``edge_q`` / ``planar_q`` are per-correspondence fit-quality weights in
-    [0,1]; ``prior_T`` adds the dead-zone constant-velocity motion prior.
+    ``vis`` adds the visual blocks; ``edge_q`` / ``planar_q`` are
+    per-correspondence fit-quality weights in [0,1]; ``prior_T`` adds the
+    dead-zone constant-velocity motion prior.
     """
     w_prior, prior_inv = _prior_weights(cfg, prior_T, prior_scale)
 
@@ -202,6 +269,9 @@ def make_lidar_system(edges, edge_mask, line_a, line_b, line_ok,
             res.robust_cost(re, cfg.huber_delta_icp, cfg.icp_loss) * oke
         ) + fp.sum(
             res.robust_cost(rp, cfg.huber_delta_icp, cfg.icp_loss) * okp)
+        if vis is not None:
+            Hv, gv, cv = _vis_terms6(T, cfg, vis)
+            H, g, cost = H + Hv, g + gv, cost + cv
         if w_prior is None:
             return H, g, cost
         Ha, ga, ca = _prior_terms6(T, cfg, w_prior, prior_inv, H)
@@ -291,10 +361,11 @@ def _make_stage(cfg, prior_T, prior_scale, build_noprior):
 
 
 def _solve(edges, edge_mask, planars, planar_mask, T_init, cfg, outer,
-           prior_T, prior_scale, fit):
+           prior_T, prior_scale, fit, vis=None):
     """The outer loop shared by both solves: ``fit(T) -> (a, b, e_ok, n, d,
     p_ok, quality_kw)`` re-searches correspondences at T, then LM runs on
-    them with the staged obs prior (or the classic system without it)."""
+    them (and on ``vis``'s visual blocks) with the staged obs prior, or the
+    classic system without it."""
     dev = T_init.device
     T = T_init
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -307,9 +378,9 @@ def _solve(edges, edge_mask, planars, planar_mask, T_init, cfg, outer,
         corr = (edges, edge_mask, a, b, e_ok, planars, planar_mask, n, d,
                 p_ok, cfg)
         stage = _make_stage(cfg, prior_T, prior_scale,
-                            make_lidar_system(*corr, **q_kw))
+                            make_lidar_system(*corr, vis=vis, **q_kw))
         build = None if stage is not None else make_lidar_system(
-            *corr, prior_T=prior_T, prior_scale=prior_scale, **q_kw)
+            *corr, vis=vis, prior_T=prior_T, prior_scale=prior_scale, **q_kw)
         n_e = torch.sum(e_ok, dtype=torch.int32)
         n_p = torch.sum(p_ok, dtype=torch.int32)
         enough = (n_e + n_p) >= _MIN_CORR
@@ -325,13 +396,16 @@ def solve_scan_to_scan(cur_edges, cur_edge_mask, cur_planars,
                        cur_planar_mask, edge_targets: TargetSet,
                        planar_targets: TargetSet, T_init, cfg,
                        iters: Optional[int] = None,
+                       vis: Optional[VisData] = None,
                        edge_cands: Optional[CandCache] = None,
                        planar_cands: Optional[CandCache] = None,
                        prior_T=None, prior_scale=None):
     """LOAM odometry solve: current features vs previous-scan targets.
 
     ``edge_targets.payload[:, 0]`` carries ring indices (the different-ring
-    rule of the 2-point edge lines).  Returns (T_target_cur, SolveDiag).
+    rule of the 2-point edge lines).  With ``vis`` the visual residuals
+    join the cost (the vision-enhanced joint solve).  Returns
+    (T_target_cur, SolveDiag).
     """
     outer = cfg.icp_iters_odom if iters is None else iters
     eq = _make_engine(edge_targets, cur_edges, cur_edge_mask, T_init, cfg,
@@ -347,7 +421,7 @@ def solve_scan_to_scan(cur_edges, cur_edge_mask, cur_planars,
         return a, b, e_ok, n, d, p_ok, {"planar_q": p_q}
 
     return _solve(cur_edges, cur_edge_mask, cur_planars, cur_planar_mask,
-                  T_init, cfg, outer, prior_T, prior_scale, fit)
+                  T_init, cfg, outer, prior_T, prior_scale, fit, vis=vis)
 
 
 def solve_scan_to_map(cur_edges, cur_edge_mask, cur_planars,

@@ -1,5 +1,5 @@
-"""Geometric residuals, robust losses and PCA fits
-(port of the LiDAR half of ``velo_tpu/solve/residuals.py``).
+"""Geometric and visual residuals, robust losses and PCA fits
+(port of ``velo_tpu/solve/residuals.py``).
 
 Pose perturbation model (left, translation-first): for a point already
 mapped into the target frame, ``d(exp(xi) p)/d xi = [I | -hat(p)]``, and
@@ -42,6 +42,86 @@ def point_to_plane(p: torch.Tensor, n: torch.Tensor, d0: torch.Tensor,
                    valid: torch.Tensor):
     """Signed distance of points p to planes (unit n, offset d0)."""
     return fp.dot3(n, p) + d0, n, valid
+
+
+def reprojection(p_cam: torch.Tensor, P: torch.Tensor, obs_uv: torch.Tensor,
+                 valid: torch.Tensor):
+    """Pinhole reprojection residual and its Jacobian wrt the camera-frame
+    point -> (r (K, 2), dr_dp (K, 2, 3), ok).  With P = [M | p4] and
+    x = M p + p4: du/dp = (M0 - u M2) / x2, dv/dp = (M1 - v M2) / x2."""
+    ph = torch.cat([p_cam, torch.ones_like(p_cam[..., :1])], dim=-1)
+    x = fp.einsum("ij,...j->...i", P, ph)
+    z = x[..., 2]
+    ok = valid & (z > 0.1)
+    safe_z = torch.where(ok, z, 1.0)
+    uv = x[..., :2] / safe_z[..., None]
+    r = uv - obs_uv
+    M = P[:3, :3]
+    du_dp = (M[0] - uv[..., 0:1] * M[2]) / safe_z[..., None]
+    dv_dp = (M[1] - uv[..., 1:2] * M[2]) / safe_z[..., None]
+    return r, torch.stack([du_dp, dv_dp], dim=-2), ok
+
+
+def _epipolar64(M, K, uv_prev, uv_cur):
+    """Float64 pieces of the epipolar residual: (x1, x2, l, s = x2.l,
+    ln = |l_xy|, fx)."""
+    Kinv = torch.linalg.inv(K.to(fp.F64))
+    ones = torch.ones_like(uv_prev[..., :1])
+    x1 = torch.cat([uv_prev, ones], dim=-1).to(fp.F64) @ Kinv.T
+    x2 = torch.cat([uv_cur, ones], dim=-1).to(fp.F64) @ Kinv.T
+    M = M.to(fp.F64)
+    E = se3.hat(M[:3, 3]) @ M[:3, :3]  # (3,3) essential matrix
+    l = x1 @ E.T  # epipolar lines in current normalized coordinates
+    ln = torch.sqrt(l[..., 0] * l[..., 0] + l[..., 1] * l[..., 1])
+    s = torch.sum(x2 * l, dim=-1)
+    return x1, x2, l, s, ln, K[0, 0].to(fp.F64)
+
+
+def epipolar(M: torch.Tensor, K: torch.Tensor, uv_prev: torch.Tensor,
+             uv_cur: torch.Tensor, valid: torch.Tensor,
+             min_baseline: float = 0.05):
+    """Point-to-epipolar-line residual (pixels) of tracks without depth.
+
+    ``M = [R|t]`` maps previous-camera coordinates into the current camera;
+    with E = [t]x R and l = E x1, r = fx (x2 . l) / |l_xy|.  Masked when the
+    baseline vanishes.  Computed in float64 (K^-1 included) and rounded
+    once.  Returns (r (K,), ok (K,)).
+    """
+    _, _, _, s, ln, fx = _epipolar64(M, K, uv_prev, uv_cur)
+    ok = valid & (fp.norm3(M[:3, 3]) > min_baseline) & (ln > 1e-8)
+    r = (fx * s / torch.clamp(ln, min=1e-8)).to(uv_prev.dtype)
+    return torch.where(ok, r, 0.0), ok
+
+
+def epipolar_jacobian(A: torch.Tensor, T_velo_cam: torch.Tensor,
+                      K: torch.Tensor, uv_prev: torch.Tensor,
+                      uv_cur: torch.Tensor, ok: torch.Tensor):
+    """(K, 6) derivative of :func:`epipolar`'s residual wrt a left
+    perturbation xi = (rho, phi) of the solved pose T, where
+    ``M(xi) = A exp(-xi) T_velo_cam`` and ``A = T_cam_velo T^-1``.
+
+    The reference takes this with ``jax.jacfwd``; here it is analytic, in
+    float64: dM_k = -A G_k T_velo_cam with G_k the k-th se(3) generator,
+    dE_k = [dt_k]x R + [t]x dR_k, dl_k = dE_k x1, and
+    dr_k = fx ((x2 . dl_k) - s (l_xy . dl_k,xy) / ln^2) / ln.  Rows where
+    ``ok`` is False are zero.
+    """
+    A = A.to(fp.F64)
+    Tvc = T_velo_cam.to(fp.F64)
+    M = A @ Tvc
+    x1, x2, l, s, ln, fx = _epipolar64(M, K, uv_prev, uv_cur)
+    R, t = M[:3, :3], M[:3, 3]
+    G = torch.zeros((6, 4, 4), dtype=fp.F64, device=A.device)
+    G[:3, :3, 3] = torch.eye(3, dtype=fp.F64, device=A.device)
+    G[3:, :3, :3] = se3.hat(torch.eye(3, dtype=fp.F64, device=A.device))
+    dM = -(A @ G @ Tvc)  # (6, 4, 4)
+    dE = (se3.hat(dM[:, :3, 3]) @ R + se3.hat(t) @ dM[:, :3, :3])  # (6,3,3)
+    dl = torch.einsum("mij,kj->kmi", dE, x1)  # (K, 6, 3)
+    ds = torch.einsum("ki,kmi->km", x2, dl)
+    dln2 = l[:, None, 0] * dl[..., 0] + l[:, None, 1] * dl[..., 1]
+    lnc = ln[:, None]
+    J = fx * (ds - s[:, None] * dln2 / (lnc * lnc)) / lnc
+    return torch.where(ok[:, None], J, 0.0).to(uv_prev.dtype)
 
 
 def huber_weight(r: torch.Tensor, delta: float) -> torch.Tensor:
