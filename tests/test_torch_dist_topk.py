@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from velo_tpu_torch.kernels.dist_topk import dist_topk, dist_topk_reference
+from velo_tpu_torch.kernels.dist_topk import (dist_topk, dist_topk_reference,
+                                              launch_geometry)
 
 torch.set_num_threads(1)
 
@@ -31,6 +32,37 @@ def _problem(seed, q, n, spread=30.0, noise=0.5, masked=0.1):
     qs = (t[rng.integers(0, n, q)]
           + rng.normal(0, noise, (q, 3))).astype(np.float32)
     return t, tm, qs
+
+
+def _edge_problem(name):
+    """Inputs off the beaten path -> (targets, mask, queries, bin_factor).
+
+    ``few_live``: all but 10 of 3072 targets masked, so fewer than k = 16
+    bins are live and the trailing rounds repeat one bin; ``duplicates``:
+    every target of the second quarter repeats one of the first (an exact
+    tie inside a bin: elements j and j + 768 share bin j) and every odd
+    target of the first quarter repeats its left neighbour (an exact tie
+    across two bins); ``q1000``: a query count that is no multiple of the
+    reference's 256-row padding or of the kernel's query tile."""
+    n, bf = 3072, 4
+    if name == "few_live":
+        t, tm, qs = _problem(21, 256, n)
+        tm = np.zeros(n, bool)
+        tm[np.random.default_rng(22).choice(n, 10, replace=False)] = True
+    elif name == "duplicates":
+        t, tm, qs = _problem(23, 512, n, masked=0.0)
+        t[1:768:2] = t[0:767:2]
+        t[768:1536] = t[0:768]
+        qs = (t[np.random.default_rng(24).integers(0, 1536, 512)]
+              + np.float32(0.25)).astype(np.float32)
+    elif name == "q1000":
+        t, tm, qs = _problem(25, 1000, n)
+    else:
+        raise ValueError(name)
+    return t, tm, qs, bf
+
+
+EDGE_CASES = ["few_live", "duplicates", "q1000"]
 
 
 def _exact(t, tm, qs, k):
@@ -65,6 +97,49 @@ def test_plain_matches_pallas_reference(q, n, bf):
     same = tidx == jidx
     assert same[valid].mean() >= 0.999
     assert d2_close[valid & ~same].all()
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_plain_matches_pallas_reference_on_edge_cases(name):
+    """Tolerance of ``test_plain_matches_pallas_reference``: indices equal
+    but for near-ties within 1e-5 of the distance scale; here over every
+    lane, the exhausted ones (d2 ~ 1e30) included."""
+    import jax.numpy as jnp
+
+    from velo_tpu.pallas.dist_topk import dist_topk as jax_dist_topk
+
+    t, tm, qs, bf = _edge_problem(name)
+    jd2, jidx = (np.asarray(x) for x in jax_dist_topk(
+        jnp.asarray(t), jnp.asarray(tm), jnp.asarray(qs), k=16,
+        bin_factor=bf, interpret=True))
+    td2, tidx = (x.numpy() for x in dist_topk(
+        torch.tensor(t), torch.tensor(tm), torch.tensor(qs), k=16,
+        bin_factor=bf))
+    assert td2.shape == jd2.shape == (len(qs), 16)
+    live = jd2 <= 1e20
+    np.testing.assert_array_equal(td2 <= 1e20, live)
+    scale = (qs ** 2).sum(-1, keepdims=True) + (t ** 2).sum(-1).max()
+    d2_close = np.abs(td2 - jd2) <= 1e-5 * scale
+    assert d2_close[live].all()
+    same = tidx == jidx
+    assert d2_close[live & ~same].all()
+    if name == "few_live":
+        # At most 10 live bins: the other rounds return one bin again and
+        # again, the same one in both, with d2 = 1e30 exactly.
+        assert live.sum(1).max() <= 10
+        assert same.all()
+        assert (np.diff(tidx[:, 10:], axis=1) == 0).all()
+        assert (td2[~live] == np.float32(1e30)).all()
+    elif name == "duplicates":
+        # Of two identical targets the lower index wins, wherever the twin
+        # lies: no returned index is the later copy of a pair.
+        assert same.mean() >= 0.999
+        later = np.zeros(len(t), bool)
+        later[1:768:2] = True
+        later[768:1536] = True
+        assert not later[tidx[:, 0]].any() and not later[jidx[:, 0]].any()
+    else:
+        assert same.mean() >= 0.999
 
 
 @pytest.mark.parametrize("n,q,bf", [(3072, 1000, 4), (4096, 512, 16)])
@@ -125,3 +200,106 @@ def test_kernel_bitwise_equals_plain_on_card(q, n, bf):
     assert idx.dtype == torch.int32 and d2.dtype == torch.float32
     assert torch.equal(idx, ridx)
     assert torch.equal(d2, rd2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_kernel_bitwise_equals_plain_on_card_edge_cases(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    t, tm, qs, bf = _edge_problem(name)
+    t, tm, qs = (torch.tensor(x, device=dev) for x in (t, tm, qs))
+    d2, idx = dist_topk(t, tm, qs, k=16, bin_factor=bf)
+    rd2, ridx = dist_topk_reference(t, tm, qs, k=16, bin_factor=bf)
+    torch.cuda.synchronize()
+    assert d2.shape == (len(qs), 16)
+    assert torch.equal(idx, ridx)
+    assert torch.equal(d2, rd2)
+    if name == "few_live":
+        assert bool((d2[:, 10:] == 1e30).all())
+
+
+@pytest.mark.cuda
+def test_kernel_takes_strided_inputs_on_card():
+    """A column slice of a wider tensor and a strided mask go to the kernel
+    as they are (no copy) and give the contiguous call's result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    t, tm, qs = (torch.tensor(x, device=dev) for x in _problem(5, 300, 1024))
+    wide_t = torch.cat([t, torch.zeros_like(t)], dim=1)[:, :3]
+    wide_q = torch.cat([qs, torch.zeros_like(qs)], dim=1)[:, :3]
+    tm2 = torch.stack([tm, ~tm], dim=1)[:, 0]
+    assert not wide_t.is_contiguous() and not tm2.is_contiguous()
+    a = dist_topk(wide_t, tm2, wide_q, k=16, bin_factor=4)
+    b = dist_topk(t, tm, qs, k=16, bin_factor=4)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# The H100: 132 SMs, 232,448 bytes of shared memory for one block.
+SMS, MAX_SMEM = 132, 232448
+
+
+def _smem(tq, nb):
+    """Per query 32 columns of bins at an odd stride, 4 bytes a bin."""
+    return 4 * tq * 32 * (-(-nb // 32) | 1)
+
+
+def _check_geometry(q, n, bf, k):
+    g = launch_geometry(q, n, bf, k)
+    assert n % g.tn == 0 and g.tn % g.nbt == 0 and g.tn // g.nbt == bf
+    assert g.nb == n // bf == (n // g.tn) * g.nbt
+    assert g.tq in (1, 2, 4, 8) and g.tq * 32 <= g.threads <= 1024
+    assert g.blocks == -(-q // g.tq) and g.blocks * g.tq >= q
+    assert 4 * g.tq * g.nb <= g.smem_bytes == _smem(g.tq, g.nb) <= MAX_SMEM
+    return g
+
+
+@pytest.mark.parametrize("q,n,bf", FULL_PATH + TINY_PATH + [(1000, 3072, 4)])
+def test_launch_geometry_on_the_path(q, n, bf):
+    from velo_tpu.pallas.dist_topk import _pick_tile
+
+    g = _check_geometry(q, n, bf, 16)
+    assert g.tn == _pick_tile(n)  # the reference's tiles decide the bins
+    if q >= 1000:
+        assert g.blocks >= SMS
+        # Two blocks fit one SM's shared memory, so the grid is one wave.
+        assert 2 * g.smem_bytes <= MAX_SMEM and g.blocks <= 2 * SMS
+
+
+def test_launch_geometry_sweep():
+    seen = set()
+    for n in (256, 512, 768, 1024, 3072, 4096, 6144, 12288, 16384, 32768,
+              65536, 131072):
+        for bf in (1, 2, 4, 8, 16, 32, 64, 256):
+            for q in (1, 7, 131, 132, 263, 264, 1000, 1056, 4096, 100000):
+                for k in (1, 16, 33):
+                    tn = next(t for t in (4096, 3072, 2048, 1024, 512, 256)
+                              if n % t == 0)
+                    if tn % bf or k > n // bf or _smem(1, n // bf) > MAX_SMEM:
+                        with pytest.raises(ValueError):
+                            launch_geometry(q, n, bf, k)
+                        continue
+                    g = _check_geometry(q, n, bf, k)
+                    seen.add(g.tq)
+                    # The largest query tile that still covers the SMs.
+                    bigger = [t for t in (2, 4, 8) if t > g.tq
+                              and _smem(t, g.nb) <= MAX_SMEM]
+                    assert all(-(-q // t) < SMS for t in bigger)
+    assert seen == {1, 2, 4, 8}
+
+
+@pytest.mark.parametrize("q,n,bf,k", [
+    (0, 3072, 4, 16),  # no query
+    (256, 1000, 4, 16),  # N no multiple of 256
+    (256, 3072, 5, 16),  # the fold does not divide the tile
+    (256, 3072, 0, 16),
+    (256, 3072, 4, 0),
+    (256, 1024, 256, 16),  # fewer bins than k
+    (256, 262144, 4, 16),  # one query's bins exceed a block's shared memory
+])
+def test_launch_geometry_refuses_what_the_kernel_does_not_take(q, n, bf, k):
+    with pytest.raises(ValueError):
+        launch_geometry(q, n, bf, k)

@@ -47,6 +47,39 @@ def _with_bad_tracks(uv):
     return np.concatenate([uv, bad])
 
 
+def _edge_setup(H=64, W=512, with_inf=False):
+    """An image pair with a flat patch, and tracks on every edge of the
+    contract: NaN in one or both coordinates, the image corner, the last
+    position whose template support fits (floor(x) - 7 = 1, floor(x) + 9 =
+    W - 1; likewise y) and the first that does not, a textureless window
+    (det = 0), a start far from the template position, a start on the
+    image border (every step frozen), and positions far outside."""
+    prev, cur, _, _ = _setup(9, H, W, 1)
+    prev[H // 2 - 14:H // 2 + 14, 100:160] = 0.5
+    cur[H // 2 - 14:H // 2 + 14, 100:160] = 0.5
+    nan = np.nan
+    ym = float(H // 2)
+    uv_prev = np.array([
+        [nan, nan], [nan, ym], [200.0, nan], [2.0, 2.0],
+        [8.0, ym], [7.99, ym], [W - 9.01, ym], [W - 9.0, ym],
+        [300.5, 8.0], [300.5, 7.5], [300.5, H - 9.01], [300.5, H - 9.0],
+        [130.0, ym], [250.25, ym - 3.5], [260.75, ym + 2.5],
+        [270.5, ym], [280.5, ym], [-5.0, -5.0], [1e9, 1e9],
+        [400.3, ym + 1.7]], np.float32)
+    uv_cur = uv_prev.copy()
+    uv_cur[13] += [1.0, -0.5]
+    uv_cur[14] += [30.0, 4.0]  # far from the template position
+    uv_cur[15] = [3.0, ym]  # patch leaves the image: frozen from the start
+    uv_cur[16] = [nan, ym]
+    uv_cur[19] += [-1.2, 0.6]
+    if with_inf:
+        uv_prev = np.concatenate(
+            [uv_prev, [[np.inf, ym], [300.0, -np.inf]]]).astype(np.float32)
+        uv_cur = np.concatenate(
+            [uv_cur, [[300.0, ym], [np.inf, np.inf]]]).astype(np.float32)
+    return prev, cur, uv_prev, uv_cur
+
+
 def _both(inputs, iters):
     import jax.numpy as jnp
 
@@ -86,6 +119,26 @@ def test_out_of_image_and_nan_tracks_freeze():
     np.testing.assert_array_equal(ut[5:7], inputs[3][5:7])
     np.testing.assert_array_equal(ut[7], [-1e6, -1e6])
     np.testing.assert_array_equal(uj[5:], ut[5:])
+
+
+@pytest.mark.parametrize("iters", [4, 8])
+def test_edge_tracks_match_pallas_reference(iters):
+    inputs = _edge_setup()
+    uj, okj, ut, okt = _both(inputs, iters)
+    np.testing.assert_array_equal(okt, okj)
+    # The template test: the last position that fits is ok, the first
+    # that does not is not; NaN, corner, flat and far-outside tracks fail.
+    expect_ok = {4: True, 5: False, 6: True, 7: False, 8: True, 9: False,
+                 10: True, 11: False, 12: False, 13: True, 19: True}
+    for track, ok in expect_ok.items():
+        assert okt[track] == ok, track
+    assert not okt[[0, 1, 2, 3, 16, 17, 18]].any()
+    # Tracks that never step return their start (NaN reads -1e6) exactly.
+    frozen = [0, 1, 2, 3, 5, 7, 9, 11, 12, 15, 16, 17, 18]
+    start = np.nan_to_num(inputs[3], nan=-1e6)
+    np.testing.assert_array_equal(ut[frozen], start[frozen])
+    np.testing.assert_array_equal(uj[frozen], ut[frozen])
+    assert np.abs(ut[okt] - uj[okt]).max() < 1e-2
 
 
 def test_converges_to_true_flow():
@@ -187,3 +240,20 @@ def test_kernel_bitwise_equals_plain_on_card(iters):
     assert int(ok.sum()) > 200
     cpu_uv, cpu_ok = tk.track_level0(*(x.cpu() for x in inputs), cfg, iters)
     assert torch.equal(cpu_ok, ok.cpu()) and torch.equal(cpu_uv, uv.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [8, 4, 0])
+def test_kernel_bitwise_equals_plain_on_card_edge_tracks(iters):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    inputs = [torch.tensor(a, device=dev)
+              for a in _edge_setup(192, 640, with_inf=True)]
+    cfg = dataclasses.replace(tconfig.VisionConfig(), klt_impl="pallas")
+    uv, ok = tk.track_level0(*inputs, cfg, iters)
+    ruv, rok = tk.track_level0_reference(*inputs, cfg, iters)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, rok)
+    assert torch.equal(uv, ruv)
+    assert 4 <= int(ok.sum()) <= 8

@@ -27,16 +27,31 @@
 // rows 0..14 in order, as the plain version's loops do.  The two agree to
 // the bit on the card.
 //
-// What bounds it on the H100: one call reads two 192x640 float32 images
-// (~1 MB, 0.3 us at 3.35 TB/s) and does ~10 MFLOP (well under 1 us on the
-// CUDA cores), so neither bytes nor operations bound it: it is bound by
-// latency, 4-8 dependent Gauss-Newton steps per track, each a gather, two
-// 225-sums and a shuffle chain.  The design keeps it simple: one warp per
-// track, lane i owning patch row i (lanes 15-31 repeat row 14 and are never
-// read), template and gradient rows in registers, both images read through
-// the read-only cache (they stay L2-resident), no shared memory, and the
-// sums gathered by 15 broadcast shuffles so every lane holds the total.
-// A track that fails its template test exits before any step.
+// What bounds it on the H100: one call reads the distinct pixels its tracks
+// touch (~0.4 MB, 0.1 us at 3.35 TB/s) and does ~5 MFLOP (under 0.1 us on
+// the CUDA cores), so neither bytes nor operations bound it, and the bound
+// is below the time of any launch: it is bound by latency, 4-8 dependent
+// Gauss-Newton steps per track, each a window load, a patch, a 225-sum per
+// normal-equation term and an ordered total over the 15 patch rows.  The
+// design shortens every link of that chain:
+//
+//  * Stage, then compute.  All 32 lanes copy the template's 18x18 support
+//    of the previous image (16x16 bilinear support plus the Scharr ring)
+//    into shared memory, neighbouring lanes on neighbouring columns; each
+//    of the 16x16 Scharr gx and gy values is then computed once, spread
+//    over the lanes, and the three 15x15 patches are lerped from shared
+//    memory.  Every step copies the 16x16 support of the current patch the
+//    same way (8 loads per lane, two 64-byte row segments per warp load)
+//    before a lane lerps its row, instead of 32 loads per lane at a row
+//    stride between lanes.
+//  * Both half-warps work.  Lane l owns patch row l mod 16 (row 15 repeats
+//    row 14 and is never read); lanes 0-15 hold the gx row and sum gx*e,
+//    lanes 16-31 hold the gy row and sum gy*e, so the two ordered totals
+//    of a step (rows 0..14, one broadcast shuffle and one sum each) run as
+//    one chain of 15 with a last exchange between the halves; likewise gxx
+//    and gyy of the template.
+//  * One warp per block: K = 256 tracks are 256 blocks, two per SM, and a
+//    track that fails its template test exits before any step.
 //
 // Build: see velo_tpu_torch/kernels/_build.py.
 
@@ -52,7 +67,11 @@ constexpr int kS = 2 * kH + 1;   // 15
 constexpr int kPBR = 32;         // previous-image block rows
 constexpr int kCBR = 48;         // current-image block rows
 constexpr int kBW = 384;         // block width
-constexpr int kWarpsPerBlock = 4;
+constexpr int kWarpsPerBlock = 1;
+constexpr int kWinS = 18;        // row stride of the staged 18x18 window
+constexpr int kPatS = 17;        // row stride of the staged 16x16 arrays
+                                 // (odd: lanes on successive rows hit
+                                 // distinct banks)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNanPos = -1e6f;
 constexpr float kDetMin = 1e-9f;
@@ -84,74 +103,62 @@ __device__ __forceinline__ float lerp(float a, float b, float t, float omt) {
   return __fadd_rn(__fmul_rn(a, omt), __fmul_rn(b, t));
 }
 
-// Scharr gradients at interior pixel (r, c), in the operation order of
-// vision/pyramid.scharr_gradients: (3 d0 + 10 d1) + 3 d2, then / 32.
-__device__ __forceinline__ float scharr_x(const float* __restrict__ img,
-                                          int W, int r, int c) {
-  const float* u = img + (r - 1) * W + c;
-  const float* m = img + r * W + c;
-  const float* d = img + (r + 1) * W + c;
-  float s = __fadd_rn(__fmul_rn(3.f, __fsub_rn(__ldg(u + 1), __ldg(u - 1))),
-                      __fmul_rn(10.f, __fsub_rn(__ldg(m + 1), __ldg(m - 1))));
-  s = __fadd_rn(s, __fmul_rn(3.f, __fsub_rn(__ldg(d + 1), __ldg(d - 1))));
+// Scharr gradients at position (r, c) of the staged window (r, c >= 1), in
+// the operation order of vision/pyramid.scharr_gradients:
+// (3 d0 + 10 d1) + 3 d2, then / 32.
+__device__ __forceinline__ float scharr_x(const float* win, int r, int c) {
+  const float* u = win + (r - 1) * kWinS + c;
+  const float* m = u + kWinS;
+  const float* d = m + kWinS;
+  float s = __fadd_rn(__fmul_rn(3.f, __fsub_rn(u[1], u[-1])),
+                      __fmul_rn(10.f, __fsub_rn(m[1], m[-1])));
+  s = __fadd_rn(s, __fmul_rn(3.f, __fsub_rn(d[1], d[-1])));
   return __fmul_rn(s, 0.03125f);
 }
 
-__device__ __forceinline__ float scharr_y(const float* __restrict__ img,
-                                          int W, int r, int c) {
-  const float* u = img + (r - 1) * W + c;
-  const float* d = img + (r + 1) * W + c;
-  float s = __fadd_rn(__fmul_rn(3.f, __fsub_rn(__ldg(d - 1), __ldg(u - 1))),
-                      __fmul_rn(10.f, __fsub_rn(__ldg(d), __ldg(u))));
-  s = __fadd_rn(s, __fmul_rn(3.f, __fsub_rn(__ldg(d + 1), __ldg(u + 1))));
+__device__ __forceinline__ float scharr_y(const float* win, int r, int c) {
+  const float* u = win + (r - 1) * kWinS + c;
+  const float* d = u + 2 * kWinS;
+  float s = __fadd_rn(__fmul_rn(3.f, __fsub_rn(d[-1], u[-1])),
+                      __fmul_rn(10.f, __fsub_rn(d[0], u[0])));
+  s = __fadd_rn(s, __fmul_rn(3.f, __fsub_rn(d[1], u[1])));
   return __fmul_rn(s, 0.03125f);
 }
 
-// Row `i` of a 15x15 bilinear patch whose support starts at (r0, c0).
-__device__ __forceinline__ void patch_row(const float* __restrict__ img,
-                                          int W, int r0, int c0, int i,
+// Row of a 15x15 bilinear patch from two staged support rows a (upper) and
+// b (lower) of 16 values each: rows lerped first, then columns.
+__device__ __forceinline__ void patch_row(const float* a, const float* b,
                                           float fx, float fy,
                                           float out[kS]) {
   const float omfx = __fsub_rn(1.f, fx);
   const float omfy = __fsub_rn(1.f, fy);
-  const float* a = img + (r0 + i) * W + c0;
-  const float* b = a + W;
-  float prev = lerp(__ldg(a), __ldg(b), fy, omfy);
+  float prev = lerp(a[0], b[0], fy, omfy);
 #pragma unroll
   for (int j = 0; j < kS; ++j) {
-    const float next = lerp(__ldg(a + j + 1), __ldg(b + j + 1), fy, omfy);
+    const float next = lerp(a[j + 1], b[j + 1], fy, omfy);
     out[j] = lerp(prev, next, fx, omfx);
     prev = next;
   }
 }
 
-// The same row of the Scharr gx and gy patches.
-__device__ __forceinline__ void grad_rows(const float* __restrict__ img,
-                                          int W, int r0, int c0, int i,
-                                          float fx, float fy, float gx[kS],
-                                          float gy[kS]) {
-  const float omfx = __fsub_rn(1.f, fx);
-  const float omfy = __fsub_rn(1.f, fy);
-  const int r = r0 + i;
-  float px = lerp(scharr_x(img, W, r, c0), scharr_x(img, W, r + 1, c0), fy,
-                  omfy);
-  float py = lerp(scharr_y(img, W, r, c0), scharr_y(img, W, r + 1, c0), fy,
-                  omfy);
+// `part` holds a patch-row sum in lanes 0-14 and another one in lanes
+// 16-30.  Sums rows 0..14 in order within each half; returns the lower
+// half's total in `lo` and the upper half's in `hi`, on every lane.
+__device__ __forceinline__ void halves_total(float part, int lane, float& lo,
+                                             float& hi) {
+  const int base = lane & 16;
+  float tot = __shfl_sync(kFull, part, base);
 #pragma unroll
-  for (int j = 0; j < kS; ++j) {
-    const int c = c0 + j + 1;
-    const float nx = lerp(scharr_x(img, W, r, c), scharr_x(img, W, r + 1, c),
-                          fy, omfy);
-    const float ny = lerp(scharr_y(img, W, r, c), scharr_y(img, W, r + 1, c),
-                          fy, omfy);
-    gx[j] = lerp(px, nx, fx, omfx);
-    gy[j] = lerp(py, ny, fx, omfx);
-    px = nx;
-    py = ny;
+  for (int i = 1; i < kS; ++i) {
+    tot = __fadd_rn(tot, __shfl_sync(kFull, part, base + i));
   }
+  const float other = __shfl_xor_sync(kFull, tot, 16);
+  lo = base ? other : tot;
+  hi = base ? tot : other;
 }
 
-// Sum over the warp's 15 patch rows, row 0 first; every lane gets it.
+// Sum over the 15 patch rows held by lanes 0-14, row 0 first; every lane
+// gets it.
 __device__ __forceinline__ float rows_total(float row) {
   float tot = __shfl_sync(kFull, row, 0);
 #pragma unroll
@@ -159,16 +166,24 @@ __device__ __forceinline__ float rows_total(float row) {
   return tot;
 }
 
-__global__ void klt_l0_kernel(const float* __restrict__ prev,
-                              const float* __restrict__ cur, int H, int W,
-                              const float* __restrict__ uv_prev,
-                              const float* __restrict__ uv_cur, int K,
-                              int iters, float* __restrict__ uv_out,
-                              bool* __restrict__ ok_out) {
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    klt_l0_kernel(const float* __restrict__ prev,
+                  const float* __restrict__ cur, int H, int W,
+                  const float* __restrict__ uv_prev,
+                  const float* __restrict__ uv_cur, int K, int iters,
+                  float* __restrict__ uv_out, bool* __restrict__ ok_out) {
+  __shared__ float s_win[kWarpsPerBlock][kWinS * kWinS];
+  __shared__ float s_gx[kWarpsPerBlock][16 * kPatS];
+  __shared__ float s_gy[kWarpsPerBlock][16 * kPatS];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int k = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int k = blockIdx.x * kWarpsPerBlock + warp;
   if (k >= K) return;  // whole warps exit; no block-wide barrier follows
-  const int i = min(lane, kS - 1);  // this lane's patch row
+  const int i = min(lane & 15, kS - 1);  // this lane's patch row
+  const bool upper = (lane & 16) != 0;   // lanes 16-31: the gy half
+  float* win = s_win[warp];
+  float* sgx = s_gx[warp];
+  float* sgy = s_gy[warp];
 
   const float xp = nan_to_num(uv_prev[2 * k]);
   const float yp = nan_to_num(uv_prev[2 * k + 1]);
@@ -207,21 +222,49 @@ __global__ void klt_l0_kernel(const float* __restrict__ prev,
     const int r0 = pry + static_cast<int>(fiy) - kH;
     const int c0 = prx + static_cast<int>(fix) - kH;
 
-    float tmpl[kS], gx[kS], gy[kS];
-    patch_row(prev, W, r0, c0, i, fx, fy, tmpl);
-    grad_rows(prev, W, r0, c0, i, fx, fy, gx, gy);
-    float sxx = __fmul_rn(gx[0], gx[0]);
-    float sxy = __fmul_rn(gx[0], gy[0]);
-    float syy = __fmul_rn(gy[0], gy[0]);
-#pragma unroll
-    for (int j = 1; j < kS; ++j) {
-      sxx = __fadd_rn(sxx, __fmul_rn(gx[j], gx[j]));
-      sxy = __fadd_rn(sxy, __fmul_rn(gx[j], gy[j]));
-      syy = __fadd_rn(syy, __fmul_rn(gy[j], gy[j]));
+    // Stage the 18x18 support (t_in keeps it inside the image), then each
+    // Scharr value of the 16x16 bilinear support once.
+    {
+      const float* src = prev + (r0 - 1) * W + (c0 - 1);
+      for (int e = lane; e < kWinS * kWinS; e += 32) {
+        const int r = e / kWinS;
+        win[e] = __ldg(src + r * W + (e - r * kWinS));
+      }
     }
-    const float gxx = rows_total(sxx);
+    __syncwarp();
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {  // lanes 0-15 row 2m, lanes 16-31 row 2m+1
+      const int r = 2 * m + (lane >> 4);
+      const int c = lane & 15;
+      sgx[r * kPatS + c] = scharr_x(win, r + 1, c + 1);
+      sgy[r * kPatS + c] = scharr_y(win, r + 1, c + 1);
+    }
+    __syncwarp();
+
+    float tmpl[kS], g[kS];  // g: the gx row (lanes 0-15) or the gy row
+    float sxy, sown;
+    {
+      float gx[kS], gy[kS];
+      patch_row(win + (i + 1) * kWinS + 1, win + (i + 2) * kWinS + 1, fx, fy,
+                tmpl);
+      patch_row(sgx + i * kPatS, sgx + (i + 1) * kPatS, fx, fy, gx);
+      patch_row(sgy + i * kPatS, sgy + (i + 1) * kPatS, fx, fy, gy);
+      sxy = __fmul_rn(gx[0], gy[0]);
+#pragma unroll
+      for (int j = 1; j < kS; ++j) {
+        sxy = __fadd_rn(sxy, __fmul_rn(gx[j], gy[j]));
+      }
+#pragma unroll
+      for (int j = 0; j < kS; ++j) g[j] = upper ? gy[j] : gx[j];
+      sown = __fmul_rn(g[0], g[0]);
+#pragma unroll
+      for (int j = 1; j < kS; ++j) {
+        sown = __fadd_rn(sown, __fmul_rn(g[j], g[j]));
+      }
+    }
+    float gxx, gyy;
+    halves_total(sown, lane, gxx, gyy);
     const float gxy = rows_total(sxy);
-    const float gyy = rows_total(syy);
     const float det = __fsub_rn(__fmul_rn(gxx, gyy), __fmul_rn(gxy, gxy));
     ok = det > kDetMin;
     if (ok) {
@@ -230,6 +273,7 @@ __global__ void klt_l0_kernel(const float* __restrict__ prev,
       const float inv11 = __fdiv_rn(gxx, det);
       const float fcrx = static_cast<float>(crx);
       const float fcry = static_cast<float>(cry);
+      float* cwin = sgx;  // the gradient staging is free again: g holds it
       for (int it = 0; it < iters; ++it) {
         const float clx = __fsub_rn(x, fcrx);
         const float cly = __fsub_rn(y, fcry);
@@ -245,21 +289,29 @@ __global__ void klt_l0_kernel(const float* __restrict__ prev,
                            __fadd_rn(x0, kS) < fW && __fadd_rn(y0, kS) < fH;
         if (!(c_inw && c_img)) continue;  // warp-uniform: a frozen step
 
+        // Stage the 16x16 support of the current patch.
+        {
+          const float* src = cur + (cry + static_cast<int>(ciy) - kH) * W +
+                             (crx + static_cast<int>(cix) - kH);
+          __syncwarp();  // the previous step's reads are done
+#pragma unroll
+          for (int m = 0; m < 8; ++m) {
+            const int r = 2 * m + (lane >> 4);
+            const int c = lane & 15;
+            cwin[r * kPatS + c] = __ldg(src + r * W + c);
+          }
+          __syncwarp();
+        }
         float patch[kS];
-        patch_row(cur, W, cry + static_cast<int>(ciy) - kH,
-                  crx + static_cast<int>(cix) - kH, i,
+        patch_row(cwin + i * kPatS, cwin + (i + 1) * kPatS,
                   __fsub_rn(clx, cix), __fsub_rn(cly, ciy), patch);
-        float e = __fsub_rn(patch[0], tmpl[0]);
-        float bx = __fmul_rn(gx[0], e);
-        float by = __fmul_rn(gy[0], e);
+        float b = __fmul_rn(g[0], __fsub_rn(patch[0], tmpl[0]));
 #pragma unroll
         for (int j = 1; j < kS; ++j) {
-          e = __fsub_rn(patch[j], tmpl[j]);
-          bx = __fadd_rn(bx, __fmul_rn(gx[j], e));
-          by = __fadd_rn(by, __fmul_rn(gy[j], e));
+          b = __fadd_rn(b, __fmul_rn(g[j], __fsub_rn(patch[j], tmpl[j])));
         }
-        bx = rows_total(bx);
-        by = rows_total(by);
+        float bx, by;
+        halves_total(b, lane, bx, by);
         x = __fsub_rn(x, __fadd_rn(__fmul_rn(inv00, bx), __fmul_rn(inv01, by)));
         y = __fsub_rn(y, __fadd_rn(__fmul_rn(inv01, bx), __fmul_rn(inv11, by)));
       }

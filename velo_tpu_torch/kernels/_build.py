@@ -97,6 +97,22 @@ def build_all(names) -> dict[str, Path]:
     return built
 
 
+def load_variant(src: Path, out_name: str, flags=()) -> ctypes.CDLL:
+    """Compile any source with the package's flags plus ``flags`` into
+    ``_build/lib<out_name>.so`` (always rebuilt) and load it: for tools
+    that time an earlier design's source or a profiling build."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"lib{out_name}.so"
+    done = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(out), str(src)],
+        capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src} (rc {done.returncode}):\n"
+                           f"{done.stdout}{done.stderr}")
+    build_logs[out_name] = done.stdout + done.stderr
+    return ctypes.CDLL(str(out))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it at first use."""
     lib = _libs.get(name)

@@ -12,9 +12,11 @@ winners.  A true neighbour is lost only when two of them share a bin.
 
 ``dist_topk`` launches the CUDA kernel ``csrc/dist_topk.cu`` for tensors on
 a GPU and runs the plain PyTorch version ``dist_topk_reference`` for tensors
-on the CPU; it never falls back from one to the other.  The wrapper math
-(the (4, N) ``m`` layout, the padded ``q_aug``, the index clamp and d2) is
-shared by both, so on the card the two agree bitwise.
+on the CPU; it never falls back from one to the other.  On the card a call
+is two ``torch.empty`` outputs and one launch on the raw inputs: the kernel
+forms ``m``, |q|^2, the clamp and the indices itself, in the plain version's
+operation order and roundings, so the two agree bitwise.  The launch
+geometry is :func:`launch_geometry`, a pure function of the shapes.
 
 Masked targets and already-extracted bins both read exactly 1e30 (the f32
 sum absorbs |t|^2), so a query with fewer than k live bins gets duplicate
@@ -23,6 +25,8 @@ indices in its trailing lanes — as in the reference.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,6 +34,10 @@ from velo_tpu_torch import fp
 
 _BIG = 1e30
 _TQ = 256  # query padding granule of the reference layout
+_SMS = 132  # streaming multiprocessors of the H100
+_MAX_SMEM = 232448  # bytes of shared memory one block can use there
+_THREADS = 256
+_TQ_CHOICES = (8, 4, 2, 1)  # the kernel's register tiles of queries
 
 _fn = None
 
@@ -41,7 +49,46 @@ def _pick_tile(n: int) -> int:
     raise ValueError(f"N={n} must be a multiple of 256")
 
 
-def _prepare(targets, tmask, queries, k, bin_factor):
+class Geometry(NamedTuple):
+    """How one call is cut for the kernel."""
+    tn: int  # targets per tile (the reference's)
+    nbt: int  # bins per tile, tn // bin_factor
+    nb: int  # bins per query, n // bin_factor
+    tq: int  # queries per block, held in each thread's registers
+    threads: int  # per block; warp w extracts query w of the block
+    blocks: int  # ceil(q / tq)
+    smem_bytes: int  # the bins' minima: per query 32 columns of bins at
+    # an odd stride, 4 * tq * 32 * (ceil(nb / 32) | 1)
+
+
+def _tiles(n: int, k: int, bin_factor: int):
+    tn = _pick_tile(n)
+    nbt = tn // bin_factor if bin_factor > 0 else 0
+    if nbt * bin_factor != tn or not 0 < k <= n // bin_factor:
+        raise ValueError(f"bin_factor={bin_factor}, k={k} do not fit N={n}")
+    return tn, nbt
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(q: int, n: int, bin_factor: int, k: int) -> Geometry:
+    """The kernel's launch geometry for Q queries against N targets: the
+    largest register tile of queries that still gives every SM a block and
+    whose bins fit a block's shared memory.  Raises ValueError on shapes
+    the kernel does not take."""
+    if q < 1:
+        raise ValueError(f"Q={q}: the kernel needs at least one query")
+    tn, nbt = _tiles(n, k, bin_factor)
+    nb = (n // tn) * nbt
+    per_query = 4 * 32 * (-(-nb // 32) | 1)
+    fits = [tq for tq in _TQ_CHOICES if tq * per_query <= _MAX_SMEM]
+    if not fits:
+        raise ValueError(f"N={n}, bin_factor={bin_factor}: {nb} bins per "
+                         f"query exceed {_MAX_SMEM} bytes of shared memory")
+    tq = next((t for t in fits if -(-q // t) >= _SMS), fits[-1])
+    return Geometry(tn, nbt, nb, tq, _THREADS, -(-q // tq), tq * per_query)
+
+
+def _check(targets, tmask, queries):
     if targets.dtype != torch.float32 or queries.dtype != torch.float32:
         raise TypeError("targets and queries must be float32")
     if tmask.dtype != torch.bool:
@@ -54,10 +101,11 @@ def _prepare(targets, tmask, queries, k, bin_factor):
         raise ValueError(
             f"bad shapes {tuple(targets.shape)}, {tuple(tmask.shape)}, "
             f"{tuple(queries.shape)}")
-    tn = _pick_tile(n)
-    nbt = tn // bin_factor
-    if nbt * bin_factor != tn or not 0 < k <= n // bin_factor:
-        raise ValueError(f"bin_factor={bin_factor}, k={k} do not fit N={n}")
+
+
+def _prepare(targets, tmask, queries, k, bin_factor):
+    _check(targets, tmask, queries)
+    tn, nbt = _tiles(targets.shape[0], k, bin_factor)
 
     t2 = fp.dot3(targets, targets)
     m = torch.cat(
@@ -112,26 +160,31 @@ def _kernel_fn():
         from velo_tpu_torch.kernels import _build
 
         fn = _build.load("dist_topk").dist_topk_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, i, i, i, i, p, p, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, ll, ll, p, ll, p, ll, ll,
+                       i, i, i, i, i, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _select_cuda(q_aug, m, tn, nbt, k):
-    qp, n = q_aug.shape[0], m.shape[1]
-    out_s = torch.empty((qp, k), dtype=torch.float32, device=q_aug.device)
-    out_i = torch.empty((qp, k), dtype=torch.int32, device=q_aug.device)
+def _launch(targets, tmask, queries, k, bin_factor):
+    """One kernel launch on the raw inputs (any strides) -> (d2, idx)."""
+    q, n = queries.shape[0], targets.shape[0]
+    g = launch_geometry(q, n, bin_factor, k)
+    d2 = torch.empty((q, k), dtype=torch.float32, device=queries.device)
+    idx = torch.empty((q, k), dtype=torch.int32, device=queries.device)
     fn = _kernel_fn()
-    with torch.cuda.device(q_aug.device):
-        stream = torch.cuda.current_stream(q_aug.device).cuda_stream
-        err = fn(q_aug.data_ptr(), qp, m.data_ptr(), n, tn, nbt, k,
-                 out_s.data_ptr(), out_i.data_ptr(), stream)
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream(queries.device).cuda_stream
+        err = fn(targets.data_ptr(), *targets.stride(), tmask.data_ptr(),
+                 tmask.stride(0), queries.data_ptr(), *queries.stride(),
+                 q, n, g.tn, g.nbt, k, g.tq, g.threads, g.blocks,
+                 g.smem_bytes, d2.data_ptr(), idx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dist_topk kernel launch failed: CUDA error {err}")
     dist_topk.launches += 1
-    return out_s, out_i
+    return d2, idx
 
 
 def _finish(queries, s_sel, idx):
@@ -157,14 +210,12 @@ def dist_topk(targets: torch.Tensor, tmask: torch.Tensor,
     runs the kernel (and counts one launch in ``dist_topk.launches``); a
     CPU tensor runs :func:`dist_topk_reference`'s plain path.
     """
-    m, q_aug, tn, nbt = _prepare(targets, tmask, queries, k, bin_factor)
     if targets.device.type == "cuda":
-        s_sel, idx = _select_cuda(q_aug, m, tn, nbt, k)
-    elif targets.device.type == "cpu":
-        s_sel, idx = _select_plain(q_aug, m, tn, nbt, k)
-    else:
-        raise ValueError(f"dist_topk: unsupported device {targets.device}")
-    return _finish(queries, s_sel, idx)
+        _check(targets, tmask, queries)
+        return _launch(targets, tmask, queries, k, bin_factor)
+    if targets.device.type == "cpu":
+        return dist_topk_reference(targets, tmask, queries, k, bin_factor)
+    raise ValueError(f"dist_topk: unsupported device {targets.device}")
 
 
 dist_topk.launches = 0
