@@ -15,9 +15,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    of the wrapper, the plain version and, where one exists, a PyTorch
    library call for the same function, and the kernel alone replayed from
    a CUDA graph (no host between launches):
-   ``dist_topk`` at its four calls per frame (plus recall against an exact
-   top-16, the CUDA launches one wrapper call makes, and a check that the
-   wrapper is no slower than the library call), ``klt_l0`` on 256 corners
+   ``dist_topk`` at its four calls per frame and at the smoother's two
+   window-map shapes (plus recall against an exact top-16, the CUDA
+   launches one wrapper call makes, and a check that the wrapper is no
+   slower than the library call), ``klt_l0`` on 256 corners
    of frame 0 tracked into frame 1 (8 iterations) and back (4 iterations);
    then edge cases of both, bitwise too: fewer than k live bins,
    duplicated targets, Q = 1000; NaN, border and textureless tracks;
@@ -31,16 +32,36 @@ Phases, each of which raises (and so exits non-zero) on failure:
    gather sampler, no ``klt_l0`` launch): ground truth, frames/s and
    profile beside the kernel's, to decide which should be the default;
 7. LiDAR-only pipeline: the same frames without images, the checks of the
-   first slice (4 ``dist_topk`` launches per frame, ground truth, CPU).
+   first slice (4 ``dist_topk`` launches per frame, ground truth, CPU);
+8. export: ``io.fake_kitti.export`` writes 8 full-scale frames (HDL-64E
+   beam table, sweep start at the rear) as a KITTI sequence directory; the
+   scans and PNGs read back equal to what was written;
+9. cli-kitti: ``velo_tpu_torch.cli.main`` in process on that directory,
+   fused with ``klt_impl=pallas``, with a checkpoint every 4 frames and the
+   smoother (window 8, 2 passes): launch counts (forward 4 ``dist_topk``
+   and 2 ``klt_l0`` per frame, smoother 2 ``dist_topk`` per frame and pass,
+   at the window-map shapes), relative motion within 10 cm of ground truth
+   in the median before and after smoothing, an interrupted run resumed to
+   the bitwise forward trajectory, the smoother called as a library pass by
+   pass (timed; frame 0 kept; equal to the command line's file), and the
+   forward run and one smoother pass against ``--device cpu``;
+10. cli-variants: ``--synthetic --rings 64 --azimuth 2048 --no-vision`` over
+    4 frames, plain, ``--fast`` and ``--no-prebin``: ground truth, card
+    against CPU, raw-scan against pre-binned.
 
 Prints a JSON line of pipeline results, one of per-kernel results, then as
 its last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,8 +72,17 @@ import torch
 # then against the edge and planar local maps.
 PATH_SHAPES = [(1024, 3072, 4), (2048, 6144, 4), (1024, 16384, 32),
                (2048, 32768, 32)]
+# The smoother's two calls per frame and pass: edge and planar queries
+# against the window map of 2 * 8 + 1 frames' targets (the centre frame
+# masked out), 17 and 34 tiles of 96 bins.
+SMOOTH_WINDOW, SMOOTH_PASSES = 8, 2  # the command line's defaults
+SMOOTH_SHAPES = [(1024, (2 * SMOOTH_WINDOW + 1) * 3072, 32),
+                 (2048, (2 * SMOOTH_WINDOW + 1) * 6144, 32)]
 K = 16
 N_FRAMES = 8
+N_VARIANT_FRAMES = 4
+GATE_REL_M = 0.10  # median relative per-frame motion vs ground truth (m)
+KITTI_SET = "v:klt_impl=pallas"  # --set of the command line's KITTI run
 SEED = 0
 RINGS, AZ, IMG_H, IMG_W = 64, 2048, 192, 640
 GATE_GT_M = 0.25  # full-scale pose error vs ground truth (m)
@@ -106,6 +136,25 @@ def build() -> None:
               flush=True)
     print(f"build: both kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
+
+
+def memoize_fixtures() -> None:
+    """The drive simulator is a pure function of its arguments and takes
+    10-40 s at full scale; the command line simulates anew on every call
+    and the phases below ask for the same drives several times."""
+    from velo_tpu_torch.io import fixtures
+
+    make, cache = fixtures.make_fixture, {}
+
+    def make_fixture(**kw):
+        key = tuple(sorted(
+            (k, v.tobytes() if isinstance(v, np.ndarray) else v)
+            for k, v in kw.items()))
+        if key not in cache:
+            cache[key] = make(**kw)
+        return cache[key]
+
+    fixtures.make_fixture = make_fixture
 
 
 def make_frames():
@@ -177,7 +226,7 @@ def dist_topk_check(dev) -> dict:
 
     rng = np.random.default_rng(SEED)
     per_shape, max_err = [], 0.0
-    for q, n, bf in PATH_SHAPES:
+    for q, n, bf in PATH_SHAPES + SMOOTH_SHAPES:
         t, tm, qs = _dist_topk_problem(rng, q, n)
         tt, tmt, qt = (torch.as_tensor(x, device=dev) for x in (t, tm, qs))
         d2, idx = dist_topk(tt, tmt, qt, k=K, bin_factor=bf)
@@ -198,6 +247,7 @@ def dist_topk_check(dev) -> dict:
         hits = (idx.long()[:, :, None] == exact[:, None, :]).any(-1)
         recall = hits.float().mean().item()
         nearest = (idx[:, 0].long() == exact[:, 0]).float().mean().item()
+        del t64, q64, D, exact, hits  # up to 1.7 GB each at the window map
         if not (recall > 0.97 and nearest > 0.995):
             raise AssertionError(
                 f"recall {recall:.4f} / nearest {nearest:.4f} at {(q, n, bf)}")
@@ -224,21 +274,30 @@ def dist_topk_check(dev) -> dict:
             n * 13 + q * 12 + q * K * 8, q * n * DIST_TOPK_OPS_PER_PAIR)
         unfused_ms = (1e3 * q * n * DIST_TOPK_SLOTS_PER_PAIR
                     / FP32_LANE_SLOTS_S)
-        per_shape.append({"q": q, "n": n, "bin_factor": bf, "ms": ms,
+        g = dtk.launch_geometry(q, n, bf, K)
+        per_shape.append({"path": ("forward" if (q, n, bf) in PATH_SHAPES
+                                   else "smoother"),
+                          "query_tile": g.tq, "blocks": g.blocks,
+                          "smem_bytes": g.smem_bytes,
+                          "q": q, "n": n, "bin_factor": bf, "ms": ms,
                           "spread_ms": spread_ms, "unfused_ms": unfused_ms,
                           "cuda_launches_per_call": len(launched),
                           "plain_ms": plain_ms, "kernel_only_ms": kernel_ms,
                           "library_ms": library_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by, "recall": recall,
                           "nearest_kept": nearest})
-        print(f"dist_topk Q={q} N={n} B={bf}: wrapper {ms:.4f} ms (spread "
+        print(f"dist_topk Q={q} N={n} B={bf} (query tile {g.tq}, {g.blocks} "
+              f"blocks, {g.smem_bytes} B shared): wrapper {ms:.4f} ms (spread "
               f"{spread_ms:.4f} ms over 3 medians; {len(launched)} CUDA "
               f"launch per call; kernel alone {kernel_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, topk(cdist) {library_ms:.4f} ms, bound "
-              f"{bound_ms:.5f} ms ({bound_by}; unfused instructions {unfused_ms:.5f} "
-              f"ms), recall {recall:.4f}, "
-              f"nearest {nearest:.4f}, bitwise equal", flush=True)
-    # All four lines are out: now hold the wrapper against the library call.
+              f"{bound_ms:.5f} ms ({bound_by}; unfused issue alone "
+              f"{unfused_ms:.5f} ms), recall {recall:.4f}, nearest "
+              f"{nearest:.4f}, bitwise equal", flush=True)
+    # The plain version materialized Q x N (0.86 GB at the largest shape).
+    del tt, tmt, qt, d2, idx, rd2, ridx
+    torch.cuda.empty_cache()
+    # All lines are out: now hold the wrapper against the library call.
     lost = [s for s in per_shape
             if s["ms"] - s["library_ms"] > s["spread_ms"]]
     if lost:
@@ -506,11 +565,306 @@ def _cpu_compare(mode, frames, cfg, cam, poses, diags) -> dict:
             "cpu_diff_deg": float(cpu_r.max()), "cpu_bitwise": bitwise}
 
 
+def _cli(argv, device=None):
+    """``velo_tpu_torch.cli.main(argv + ["--json"])`` in process, on the
+    card unless ``device`` says otherwise -> (the --json line's result,
+    what it wrote to stderr, the kernels' launch counts of this call)."""
+    from velo_tpu_torch import cli
+    from velo_tpu_torch.kernels.dist_topk import dist_topk
+    from velo_tpu_torch.kernels.klt_l0 import track_level0
+
+    out, err = io.StringIO(), io.StringIO()
+    dist_topk.launches = 0
+    track_level0.launches = 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv + ["--json"]
+                      + (["--device", device] if device else []))
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"cli.main({argv}) returned {rc}")
+    launches = {"dist_topk": dist_topk.launches,
+                "klt_l0": track_level0.launches}
+    if device == "cpu" and any(launches.values()):
+        raise AssertionError(f"a CPU run launched kernels: {launches}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), \
+        err.getvalue(), launches
+
+
+def _expect_launches(what, launches, dist_topk, klt_l0):
+    expect = {"dist_topk": dist_topk, "klt_l0": klt_l0}
+    if launches != expect:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{expect}")
+
+
+def _relative_error(est, gt):
+    """Per-frame relative motion against ground truth (m), as the
+    reference's own test of the KITTI path measures it."""
+    rel_e = np.einsum("fij,fjk->fik", np.linalg.inv(est[:-1]), est[1:])
+    rel_g = np.einsum("fij,fjk->fik", np.linalg.inv(gt[:-1]), gt[1:])
+    return np.linalg.norm(rel_e[:, :3, 3] - rel_g[:, :3, 3], axis=1)
+
+
+def _compare_to_cpu(what, card, cpu) -> dict:
+    """Card against the port's CPU run of the same arguments."""
+    dt, dr = _pose_errors(card, cpu)
+    bitwise = bool(np.array_equal(card, cpu))
+    print(f"{what}: card vs CPU over {len(card)} frames: max {dt.max():.6f} "
+          f"m, {dr.max():.6f} deg, bitwise equal: {bitwise}", flush=True)
+    if dt.max() > GATE_CPU_M or dr.max() > GATE_CPU_DEG:
+        raise AssertionError(f"{what}: card and CPU poses disagree")
+    return {"cpu_diff_m": float(dt.max()), "cpu_diff_deg": float(dr.max()),
+            "cpu_bitwise": bitwise}
+
+
+def _smoother_seconds(stderr: str) -> float:
+    """The command line's own smoother time (it prints 0.1 s steps)."""
+    return float(re.search(r"smoother: .*\((\d+\.\d)s\)", stderr).group(1))
+
+
+def export_phase(tmp) -> str:
+    from velo_tpu_torch.io import fake_kitti, fixtures, kitti, png
+    from velo_tpu_torch.lidar.rangeimage import hdl64e_beam_elevations
+
+    root = os.path.join(tmp, "kitti")
+    t0 = time.perf_counter()
+    seq_dir = fake_kitti.export(root, seq="00", frames=N_FRAMES, rings=RINGS,
+                                azimuth=AZ, height=IMG_H, width=IMG_W,
+                                seed=SEED)
+    # The drive the exporter simulated (memoized: the same arguments).
+    fx = fixtures.make_fixture(
+        n_frames=N_FRAMES, n_rings=RINGS, n_azimuth=AZ, height=IMG_H,
+        width=IMG_W, with_images=True, seed=SEED,
+        beam_elev=hdl64e_beam_elevations(RINGS), az_start=float(np.pi))
+    n_bytes = 0
+    for i in range(N_FRAMES):
+        path = os.path.join(seq_dir, "image_0", f"{i:06d}.png")
+        n_bytes += os.path.getsize(path)
+        img8 = np.clip(fx.images[i] * 255.0, 0, 255).astype(np.uint8)
+        if not np.array_equal(png.read_gray8(path), img8):
+            raise AssertionError(f"export: {path} does not read back equal")
+        scan = kitti.read_velodyne_bin(
+            os.path.join(seq_dir, "velodyne", f"{i:06d}.bin"))
+        if not np.array_equal(scan, fx.scans[i].astype(np.float32)):
+            raise AssertionError(f"export: scan {i} does not read back equal")
+    seq = kitti.KittiSequence(root, "00")
+    if seq.n_frames != N_FRAMES or seq.gt_poses.shape != (N_FRAMES, 4, 4):
+        raise AssertionError("export: the sequence does not open")
+    print(f"export: {N_FRAMES} frames ({RINGS} x {AZ} hdl64e scans, {IMG_H} x "
+          f"{IMG_W} PNGs, {n_bytes} bytes of them) written and read back "
+          f"equal in {time.perf_counter() - t0:.1f} s", flush=True)
+    return root
+
+
+def cli_kitti(dev, tmp, root, smi) -> dict:
+    """This slice's path at full width: the command line from a KITTI-layout
+    directory to a KITTI pose file, fused through both kernels, with
+    checkpoint, resume and the smoother."""
+    from velo_tpu_torch.config import (LidarConfig, VeloConfig,
+                                       apply_overrides)
+    from velo_tpu_torch.io import kitti
+    from velo_tpu_torch.kernels.dist_topk import dist_topk
+    from velo_tpu_torch.kernels.klt_l0 import track_level0
+    from velo_tpu_torch.lidar import rangeimage as ri_mod
+    from velo_tpu_torch.pipeline import checkpoint, odometry, smoother
+
+    def path(*parts):
+        return os.path.join(tmp, *parts)
+
+    base = ["--kitti-root", root, "--seq", "00", "--set", KITTI_SET]
+    every = ["--checkpoint-every", str(N_FRAMES // 2)]
+    gt = kitti.read_poses(os.path.join(root, "poses", "00.txt"))
+
+    # The uninterrupted run: forward, then the smoother.
+    res, err, launches = _cli(
+        base + ["--frames", str(N_FRAMES), "--out", path("smooth"),
+                "--checkpoint", path("ck.npz"), "--smooth"] + every)
+    _expect_launches("cli-kitti", launches,
+                     4 * N_FRAMES + 2 * N_FRAMES * SMOOTH_PASSES,
+                     2 * N_FRAMES)
+    smoothed = kitti.read_poses(path("smooth", "00.txt"))
+    if smoothed.shape != (N_FRAMES, 4, 4) or not np.isfinite(smoothed).all():
+        raise AssertionError(f"cli-kitti: bad pose file {smoothed.shape}")
+    if res["frames"] != N_FRAMES or "ate_rmse_m" not in res:
+        raise AssertionError(f"cli-kitti: result line {res}")
+    cli_smooth_s = _smoother_seconds(err)
+    full = checkpoint.load_history(path("ck.npz"))
+    if checkpoint.checkpoint_frame(path("ck.npz")) != N_FRAMES:
+        raise AssertionError("cli-kitti: the last checkpoint is not the end")
+
+    # A run that ends after half the frames, then --resume over all.
+    half = N_FRAMES // 2
+    _, _, n_half = _cli(base + ["--frames", str(half), "--out", path("half"),
+                                "--checkpoint", path("ck2.npz")] + every)
+    _expect_launches("cli-kitti, first half", n_half, 4 * half, 2 * half)
+    if checkpoint.checkpoint_frame(path("ck2.npz")) != half:
+        raise AssertionError("cli-kitti: no checkpoint at the interruption")
+    res_r, _, n_res = _cli(
+        base + ["--frames", str(N_FRAMES), "--out", path("resumed"),
+                "--checkpoint", path("ck2.npz"), "--resume"] + every)
+    _expect_launches("cli-kitti, resumed", n_res, 4 * (N_FRAMES - half),
+                     2 * (N_FRAMES - half))
+    resumed = checkpoint.load_history(path("ck2.npz"))
+    if sorted(resumed) != sorted(full) or not all(
+            np.array_equal(resumed[k], full[k]) for k in full):
+        raise AssertionError("cli-kitti: the resumed run's trajectory or "
+                             "diagnostics differ from the uninterrupted "
+                             "run's")
+    seq = kitti.KittiSequence(root, "00")
+    kitti.write_poses(path("forward.txt"), odometry.velo_to_cam_trajectory(
+        full["poses"], seq.calib["Tr"]))
+    with open(path("forward.txt"), "rb") as a, \
+            open(path("resumed", "00.txt"), "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("cli-kitti: the resumed pose file is not "
+                                 "the uninterrupted forward trajectory")
+    forward = kitti.read_poses(path("resumed", "00.txt"))
+    print(f"cli-kitti: resumed from frame {half}: trajectory, diagnostics "
+          "and pose file bitwise equal to the uninterrupted forward run",
+          flush=True)
+
+    rel_f, rel_s = _relative_error(forward, gt), _relative_error(smoothed, gt)
+    print(f"cli-kitti: relative motion vs ground truth, median / max: "
+          f"forward {np.median(rel_f):.4f} / {rel_f.max():.4f} m, smoothed "
+          f"{np.median(rel_s):.4f} / {rel_s.max():.4f} m; n_depth "
+          f"{full['n_depth'].tolist()}", flush=True)
+    if np.median(rel_f) > GATE_REL_M or np.median(rel_s) > GATE_REL_M:
+        raise AssertionError("cli-kitti: relative motion above the gate")
+
+    # The smoother as a library, pass by pass from the forward trajectory
+    # (each pass re-collects its features, so two calls of one pass are one
+    # call of two): timed, frame 0 kept, equal to the command line's file.
+    lcfg = apply_overrides(VeloConfig(lidar=LidarConfig(
+        ring_mode="hdl64e", az_start=float(np.pi)), prebin_host=True),
+        KITTI_SET)
+    grids = [ri_mod.bin_scan_host(scan[mask], lcfg.lidar)
+             for scan, mask in map(seq.scan, range(N_FRAMES))]
+    scans = np.stack([g[0] for g in grids])
+    masks = np.stack([g[1] for g in grids])
+    poses, pass_s, per_pass = full["poses"], [], []
+    dist_topk.launches = 0
+    track_level0.launches = 0
+    for _ in range(SMOOTH_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses = smoother.smooth_trajectory(
+            scans, masks, poses, lcfg, window=SMOOTH_WINDOW, passes=1,
+            device=dev)
+        torch.cuda.synchronize()
+        pass_s.append(time.perf_counter() - t0)
+        per_pass.append(poses)
+    _expect_launches("smoother", {"dist_topk": dist_topk.launches,
+                                  "klt_l0": track_level0.launches},
+                     2 * N_FRAMES * SMOOTH_PASSES, 0)
+    # The gauge fix re-bases every pose on frame 0: float32 rounding apart,
+    # it stays where the forward pass put it.
+    if not np.allclose(poses[0], full["poses"][0], atol=1e-5):
+        raise AssertionError("smoother: frame 0 moved")
+    kitti.write_poses(path("library.txt"), odometry.velo_to_cam_trajectory(
+        poses, seq.calib["Tr"]))
+    with open(path("library.txt"), "rb") as a, \
+            open(path("smooth", "00.txt"), "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("smoother: the library's passes and the "
+                                 "command line's file differ")
+    moved = _pose_errors(poses, full["poses"])
+    print(f"smoother: {SMOOTH_PASSES} passes of {pass_s} s (the command line "
+          f"said {cli_smooth_s} s for both), window {SMOOTH_WINDOW}; moved "
+          f"the poses by up to {moved[0].max():.4f} m, {moved[1].max():.4f} "
+          f"deg; frame 0 kept; equal to the command line's file", flush=True)
+
+    # Card against CPU: the forward run and one smoother pass.
+    t0 = time.perf_counter()
+    _, err_c, _ = _cli(
+        base + ["--frames", str(N_FRAMES), "--out", path("cpu"),
+                "--checkpoint", path("ckc.npz"), "--smooth",
+                "--smooth-passes", "1"] + every, device="cpu")
+    print(f"cli-kitti: CPU run in {time.perf_counter() - t0:.1f} s, its "
+          f"smoother pass {_smoother_seconds(err_c)} s", flush=True)
+    cpu_fwd = checkpoint.load_history(path("ckc.npz"))["poses"]
+    cmp_f = _compare_to_cpu("cli-kitti forward", full["poses"], cpu_fwd)
+    # Like with like: the card's first pass through the same pose file.
+    kitti.write_poses(path("pass1.txt"), odometry.velo_to_cam_trajectory(
+        per_pass[0], seq.calib["Tr"]))
+    cmp_s = _compare_to_cpu("cli-kitti one smoother pass",
+                            kitti.read_poses(path("pass1.txt")),
+                            kitti.read_poses(path("cpu", "00.txt")))
+    print(f"cli-kitti 64x2048 fused, {N_FRAMES} frames incl. host I/O: "
+          f"{res['fps']} frames/s; smoother {pass_s[0]:.3f} s per pass on "
+          f"{smi}", flush=True)
+    return {"launches": launches, "fps_incl_io": res["fps"],
+            "fps_incl_io_resumed_half": res_r["fps"],
+            "smoother_pass_s": pass_s, "cli_smoother_s": cli_smooth_s,
+            "rel_err_forward_m": rel_f.tolist(),
+            "rel_err_smoothed_m": rel_s.tolist(),
+            "ate_rmse_m": res["ate_rmse_m"],
+            "smoother_moved_m": float(moved[0].max()),
+            "forward": cmp_f, "smoother_pass": cmp_s,
+            "n_depth": full["n_depth"].tolist()}
+
+
+def cli_variants(tmp) -> dict:
+    """The off-default variants the command line selects, at full width and
+    a smaller depth: plain, ``--fast`` (deferred-tail LM), ``--no-prebin``
+    (deskew and range image from the raw scan, on the device)."""
+    from velo_tpu_torch.io import fixtures, kitti
+
+    n = N_VARIANT_FRAMES
+    base = ["--synthetic", "--frames", str(n), "--rings", str(RINGS),
+            "--azimuth", str(AZ), "--no-vision"]
+    # What the command line simulates (memoized: the same arguments).
+    fx = fixtures.make_fixture(n_frames=n, n_rings=RINGS, n_azimuth=AZ,
+                               height=128, width=384, with_images=False,
+                               seed=0)
+    gt = np.linalg.inv(fx.gt_poses_cam[0]) @ fx.gt_poses_cam
+    out, poses = {}, {}
+    for name, flags in (("plain", []), ("fast", ["--fast"]),
+                        ("no-prebin", ["--no-prebin"])):
+        res, _, launches = _cli(base + flags + [
+            "--out", os.path.join(tmp, "v-" + name)])
+        _expect_launches(f"cli {name}", launches, 4 * n, 0)
+        p = kitti.read_poses(os.path.join(tmp, "v-" + name, "synthetic.txt"))
+        if p.shape != (n, 4, 4) or not np.isfinite(p).all():
+            raise AssertionError(f"cli {name}: bad pose file {p.shape}")
+        gt_t, gt_r = _pose_errors(p, gt)
+        print(f"cli {name}: pose error vs ground truth: max {gt_t.max():.4f} "
+              f"m, {gt_r.max():.4f} deg; {res['fps']} frames/s incl. host "
+              "I/O", flush=True)
+        if gt_t.max() > GATE_GT_M or gt_r.max() > GATE_GT_DEG["lidar"]:
+            raise AssertionError(f"cli {name}: pose error vs ground truth "
+                                 "above the gate")
+        poses[name] = p
+        out[name] = {"launches": launches, "fps_incl_io": res["fps"],
+                     "gt_err_m": float(gt_t.max()),
+                     "gt_err_deg": float(gt_r.max())}
+        if name != "plain":  # the LiDAR cell above is the plain run's
+            _cli(base + flags + ["--out", os.path.join(tmp, "c-" + name)],
+                 device="cpu")
+            out[name].update(_compare_to_cpu(
+                f"cli {name}", p, kitti.read_poses(
+                    os.path.join(tmp, "c-" + name, "synthetic.txt"))))
+    # The raw-scan front end against host pre-binning: the host's float64
+    # and the device's float32 elevation put a few cells into neighbouring
+    # rings, so not bitwise, but within the card-vs-CPU gate.
+    dt, dr = _pose_errors(poses["no-prebin"], poses["plain"])
+    print(f"cli no-prebin vs pre-binned: max {dt.max():.6f} m, "
+          f"{dr.max():.6f} deg; --fast vs plain bitwise equal: "
+          f"{bool(np.array_equal(poses['fast'], poses['plain']))}",
+          flush=True)
+    if dt.max() > GATE_CPU_M or dr.max() > GATE_CPU_DEG:
+        raise AssertionError("cli: --no-prebin and the pre-binned run "
+                             "disagree")
+    out["no-prebin"].update(prebin_diff_m=float(dt.max()),
+                            prebin_diff_deg=float(dr.max()))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = card_check()
     dev = torch.device("cuda", 0)
     build()
+    memoize_fixtures()
     fx, grids = make_frames()
     dk = dist_topk_check(dev)
     kk = klt_l0_check(dev, fx)
@@ -519,25 +873,42 @@ def main() -> int:
     for mode, run in runs.items():
         print(f"{mode} 64x2048 warm pass: {run['fps']:.3f} frames/s on "
               f"{smi}", flush=True)
+    del fx, grids
+    with tempfile.TemporaryDirectory() as tmp:
+        root = export_phase(tmp)
+        runs["cli-kitti"] = cli_kitti(dev, tmp, root, smi)
+        runs["cli-variants"] = cli_variants(tmp)
 
     def entry(name, source, replaces, check, library_ms, **extra):
-        shapes = check["per_shape"]
+        # One frame's calls of the forward path; the smoother's shapes
+        # stand in "per_shape" only.
+        shapes = [s for s in check["per_shape"]
+                  if s.get("path", "forward") == "forward"]
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": runs["fused"]["launches"][name],
+            # This slice's path: the command line's KITTI run.
+            "launches": runs["cli-kitti"]["launches"][name],
+            "launches_by_path": {
+                "fused": runs["fused"]["launches"][name],
+                "lidar": runs["lidar"]["launches"][name],
+                "cli-kitti": runs["cli-kitti"]["launches"][name],
+                "cli-variants": sum(v["launches"][name] for v in
+                                    runs["cli-variants"].values())},
             "max_abs_err": check["max_abs_err"],
-            # One frame's calls: sums of the per-call medians.
+            # Sums of the per-call medians.
             "ms": sum(s["ms"] for s in shapes),
             "plain_ms": sum(s["plain_ms"] for s in shapes),
             "bound_ms": sum(s["bound_ms"] for s in shapes),
             "bound_by": shapes[-1]["bound_by"],
-            "library_ms": library_ms, "per_shape": shapes, **extra}
+            "library_ms": library_ms, "per_shape": check["per_shape"],
+            **extra}
 
     kernels = [
         entry("dist_topk", "velo_tpu_torch/csrc/dist_topk.cu",
               "velo_tpu/pallas/dist_topk.py:49", dk,
-              sum(s["library_ms"] for s in dk["per_shape"]),
+              sum(s["library_ms"] for s in dk["per_shape"]
+                  if s["path"] == "forward"),
               library_call="torch.topk(torch.cdist(q, t), 16, "
                            "largest=False): exact, unbinned"),
         entry("klt_l0", "velo_tpu_torch/csrc/klt_l0.cu",

@@ -1,9 +1,12 @@
 """The port's own copies of the reference's framework-free modules
-(``config``, ``io/fixtures``, ``evaluation/kitti_metric``) held equal to
-their originals: the two packages share one tuning surface, one drive
-simulator and one drift metric without the port importing ``velo_tpu``.
+(``config``, ``io/fixtures``, ``evaluation/kitti_metric``, ``io/kitti``)
+held equal to their originals: the two packages share one tuning surface,
+one drive simulator, one drift metric and one set of KITTI file formats
+without the port importing ``velo_tpu``.
 """
+import ast
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -12,9 +15,11 @@ import velo_tpu_torch
 from velo_tpu import config as jconfig
 from velo_tpu.evaluation import kitti_metric as jmetric
 from velo_tpu.io import fixtures as jfix
+from velo_tpu.io import kitti as jkitti
 from velo_tpu_torch import config as tconfig
 from velo_tpu_torch.evaluation import kitti_metric as tmetric
 from velo_tpu_torch.io import fixtures as tfix
+from velo_tpu_torch.io import kitti as tkitti
 
 _CONFIGS = ["LidarConfig", "VisionConfig", "SolverConfig", "MapConfig",
             "VeloConfig"]
@@ -94,3 +99,35 @@ def test_evaluate_trajectory_equal():
     assert rj.n_segments > 0
     assert dataclasses.asdict(rt) == dataclasses.asdict(rj)
     assert velo_tpu_torch.kitti_metric is tmetric
+
+
+def _code(obj) -> str:
+    """The syntax tree of a function or class, docstrings left out."""
+    tree = ast.parse(inspect.getsource(obj))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name", [
+    "read_velodyne_bin", "read_calib", "read_times", "read_poses",
+    "write_poses", "pad_scan", "ImagePrefetcher", "KittiSequence"])
+def test_kitti_io_copied_statement_for_statement(name):
+    """Code equal (docstrings apart), so the two cannot drift apart
+    silently.  ``read_image_gray`` is the one function that differs (the
+    port decodes PNG itself, the reference through OpenCV):
+    ``test_torch_kitti_io.py`` holds its result equal instead."""
+    assert _code(getattr(tkitti, name)) == _code(getattr(jkitti, name))
+
+
+def test_kitti_io_copy_has_the_same_names():
+    def public(mod):
+        return sorted(n for n, v in vars(mod).items()
+                      if not n.startswith("_") and getattr(
+                          v, "__module__", None) == mod.__name__)
+    assert public(tkitti) == public(jkitti)

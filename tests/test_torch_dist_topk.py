@@ -23,6 +23,11 @@ TINY_PATH = [(512, 1536, 4), (1024, 3072, 4), (512, 8192, 4),
 # ... and at the full 64 x 2048 bench shapes (maps 16384 / 32768).
 FULL_PATH = [(1024, 3072, 4), (2048, 6144, 4), (1024, 16384, 32),
              (2048, 32768, 32)]
+# The smoother's two calls per frame and pass at 64 x 2048 with the command
+# line's default half-window of 8: queries against the window map of
+# (2 * 8 + 1) frames' targets, 17 x 3072 edges and 17 x 6144 planars (17 and
+# 34 tiles of 96 bins, where the forward path has 1-8 tiles of 128-768).
+SMOOTH_PATH = [(1024, 17 * 3072, 32), (2048, 17 * 6144, 32)]
 
 
 def _problem(seed, q, n, spread=30.0, noise=0.5, masked=0.1):
@@ -71,7 +76,10 @@ def _exact(t, tm, qs, k):
     return D, np.argsort(D, axis=1, kind="stable")[:, :k]
 
 
-@pytest.mark.parametrize("q,n,bf", TINY_PATH)
+# The last two: many tiles of few bins, as a smoother window gives (17 tiles
+# of 32 bins, 51 tiles of 8 bins).
+@pytest.mark.parametrize("q,n,bf", TINY_PATH + [(256, 17 * 1024, 32),
+                                                (256, 17 * 768, 32)])
 def test_plain_matches_pallas_reference(q, n, bf):
     import jax.numpy as jnp
 
@@ -186,7 +194,7 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,n,bf", FULL_PATH)
+@pytest.mark.parametrize("q,n,bf", FULL_PATH + SMOOTH_PATH)
 def test_kernel_bitwise_equals_plain_on_card(q, n, bf):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
@@ -257,7 +265,8 @@ def _check_geometry(q, n, bf, k):
     return g
 
 
-@pytest.mark.parametrize("q,n,bf", FULL_PATH + TINY_PATH + [(1000, 3072, 4)])
+@pytest.mark.parametrize("q,n,bf", FULL_PATH + SMOOTH_PATH + TINY_PATH
+                         + [(1000, 3072, 4)])
 def test_launch_geometry_on_the_path(q, n, bf):
     from velo_tpu.pallas.dist_topk import _pick_tile
 
@@ -267,6 +276,26 @@ def test_launch_geometry_on_the_path(q, n, bf):
         assert g.blocks >= SMS
         # Two blocks fit one SM's shared memory, so the grid is one wave.
         assert 2 * g.smem_bytes <= MAX_SMEM and g.blocks <= 2 * SMS
+
+
+@pytest.mark.parametrize("w", range(1, 13))
+def test_launch_geometry_of_every_smoother_window(w):
+    """A half-window of W frames gives (2W+1) x 3072 edge and (2W+1) x 6144
+    planar targets at 64 x 2048, all multiples of 256 that ``dense_nn.knn``
+    sends to the kernel: each gets a checked geometry with the reference's
+    tile, or the ValueError; none reaches the kernel unchecked."""
+    from velo_tpu.pallas.dist_topk import _pick_tile
+
+    for q, per_frame in ((1024, 3072), (2048, 6144)):
+        n = (2 * w + 1) * per_frame
+        bf = 32 if n >= 16384 else 4  # dense_nn.knn's rule
+        assert n % 256 == 0 and n >= 16 * 16
+        if _smem(1, n // bf) > MAX_SMEM:
+            with pytest.raises(ValueError):
+                launch_geometry(q, n, bf, 16)
+            continue
+        g = _check_geometry(q, n, bf, 16)
+        assert g.tn == _pick_tile(n) and g.blocks >= SMS
 
 
 def test_launch_geometry_sweep():

@@ -251,15 +251,91 @@ def test_init_carry_lands_on_the_card():
     assert carry.T_w.is_cuda and carry.vision.tracks.uv.is_cuda
 
 
+# ----- the variants the command line can select ---------------------------
+
+def _variant_cfg(name):
+    if name == "fast":  # --fast
+        return jconfig.apply_overrides(CFG, jconfig.FAST_PRESET)
+    if name == "deferred":
+        return jconfig.apply_overrides(CFG, "s:prior_obs_impl=deferred")
+    if name == "degen":
+        return jconfig.apply_overrides(CFG, "s:degen_rel_min=0.01")
+    assert name == "no_prebin"  # --no-prebin
+    return dataclasses.replace(CFG, prebin_host=False)
+
+
+@pytest.fixture(scope="module")
+def raw_scans():
+    fx = fixtures.make_fixture(n_frames=N_FRAMES, n_rings=32, n_azimuth=1024,
+                               with_images=False, seed=3)
+    return fx.scans
+
+
+def _variant_frames(name, frames, raw_scans):
+    if name != "no_prebin":
+        return frames
+    from velo_tpu.io import kitti
+    return [kitti.pad_scan(s, CFG.n_max_points) for s in raw_scans]
+
+
+@pytest.fixture(scope="module")
+def variant_reference(frames, raw_scans):
+    """Per variant, computed once: the JAX run's per-frame poses and the
+    numpy carry entering each frame."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cfg = _variant_cfg(name)
+            carry = jodo.init_carry(cfg)
+            carries, poses = [], []
+            for s, m in _variant_frames(name, frames, raw_scans):
+                carries.append(jax.tree.map(np.asarray, carry))
+                carry, out = jodo.jit_step(carry, jnp.asarray(s),
+                                           jnp.asarray(m), cfg)
+                poses.append(np.asarray(out.T_w))
+            cache[name] = (carries, np.stack(poses))
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("frame", [1, 3])
+@pytest.mark.parametrize("name", ["fast", "deferred", "degen", "no_prebin"])
+def test_variant_single_step_from_shared_carry(frames, raw_scans,
+                                               variant_reference, name,
+                                               frame):
+    cfg = _variant_cfg(name)
+    carries, poses = variant_reference(name)
+    carry = todo.carry_from_jax_numpy(carries[frame], "cpu")
+    s, m = _variant_frames(name, frames, raw_scans)[frame]
+    _, out = todo.step(carry, torch.tensor(s), torch.tensor(m), cfg)
+    dt, dr = _pose_diff(out.T_w.numpy(), poses[frame])
+    print(f"{name} frame {frame}: {dt:.5f} m, {dr:.5f} deg")
+    assert dt < 0.01 and dr < 0.05
+
+
+@pytest.mark.parametrize("name", ["fast", "no_prebin"])
+def test_variant_eight_frames_end_to_end(frames, raw_scans,
+                                         variant_reference, name):
+    cfg = _variant_cfg(name)
+    _, ref_poses = variant_reference(name)
+    poses, _ = todo.run_sequence_host(
+        _variant_frames(name, frames, raw_scans), cfg, device="cpu")
+    assert poses.shape == (N_FRAMES, 4, 4) and np.isfinite(poses).all()
+    worst = (0.0, 0.0)
+    for f in range(N_FRAMES):
+        dt, dr = _pose_diff(poses[f], ref_poses[f])
+        print(f"{name} frame {f}: {dt:.5f} m, {dr:.5f} deg")
+        worst = (max(worst[0], dt), max(worst[1], dr))
+    assert worst[0] < 0.05 and worst[1] < 0.1, worst
+
+
 @pytest.mark.parametrize("change", [
     {"v:klt_impl": "matmul"},
     {"v:klt_impl": "window"},
-    {"prebin_host": False},
     {"s:ct_sweep": True},
     {"s:deskew_exact_lag": True},
-    {"s:degen_rel_min": 0.01},
-    {"s:prior_obs_impl": "deferred"},
-    {"s:prior_obs_impl": "deferred_tail"},
     {"s:nn_engine": "hash"},
     {"s:nn_approx_impl": "xla"},
 ])

@@ -51,6 +51,10 @@ def arccos(x: torch.Tensor) -> torch.Tensor:
     return torch.arccos(x.to(F64)).to(x.dtype)
 
 
+def arcsin(x: torch.Tensor) -> torch.Tensor:
+    return torch.arcsin(x.to(F64)).to(x.dtype)
+
+
 def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.atan2(y.to(F64), x.to(F64)).to(y.dtype)
 

@@ -1,8 +1,8 @@
 """Constant-velocity motion deskew (port of ``velo_tpu/lidar/deskew.py``).
 
-Only the pre-binned path's pieces: the sweep phase, the matrix-free
-per-point ``exp(s_i * xi) @ p_i``, and the re-correction with an improved
-motion estimate.  The raw-scan ``deskew`` is not part of this slice.
+The sweep phase, the matrix-free per-point ``exp(s_i * xi) @ p_i``, the
+raw-scan ``deskew`` built from the two, and the re-correction with an
+improved motion estimate.
 """
 from __future__ import annotations
 
@@ -19,6 +19,17 @@ def azimuth_phase(pts: torch.Tensor, az_start: float = 0.0) -> torch.Tensor:
     """Per-point sweep phase s in [0,1) from the clockwise spin azimuth."""
     az = fp.atan2(pts[..., 1], pts[..., 0])
     return fp.div(torch.remainder(az_start - az, _TWO_PI), _TWO_PI)
+
+
+def deskew(pts: torch.Tensor, delta_xi: torch.Tensor, az_start: float = 0.0,
+           enabled: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Undistort raw (N, 3) points into the sweep-start frame with the
+    predicted motion ``delta_xi`` over the full sweep.  Returns (deskewed
+    points, per-point phase); ``enabled=False`` keeps the points."""
+    s = azimuth_phase(pts, az_start)
+    if not enabled:
+        return pts, s
+    return apply_scaled_exp(pts, s, delta_xi), s
 
 
 def apply_scaled_exp(pts: torch.Tensor, s: torch.Tensor,

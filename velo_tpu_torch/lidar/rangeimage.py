@@ -1,10 +1,14 @@
-"""Ring-organized range image, pre-binned path
-(port of ``velo_tpu/lidar/rangeimage.py``).
+"""Ring-organized range image (port of ``velo_tpu/lidar/rangeimage.py``).
 
-``bin_scan_host`` is numpy host code.  The reference's copy cannot be
+Two ways into the fixed (R, W) grid: ``build_range_image`` scatters a
+padded raw scan on the device (ring from the elevation angle, column from
+the sweep phase, the nearest return wins a cell through one scatter-min
+over packed ``(quantized_range << 17) | point_index`` keys, which is
+independent of the order of the updates and so deterministic), and
+``range_image_from_grid`` deskews a grid that ``bin_scan_host`` filled on
+the host.  ``bin_scan_host`` is numpy code; the reference's copy cannot be
 shared because its module imports ``jax.numpy``, so it is repeated here
-line for line; the tests hold the two bitwise equal.  The device
-scatter-min of ``build_range_image`` (raw-scan path) is not in this slice.
+line for line and the tests hold the two bitwise equal.
 """
 from __future__ import annotations
 
@@ -38,6 +42,74 @@ class RangeImage(NamedTuple):
     rng: torch.Tensor  # (R, W) range (0 where invalid)
     phase: torch.Tensor  # (R, W) sweep phase of the stored point
     valid: torch.Tensor  # (R, W) bool
+
+
+def _deg2rad32(deg: float) -> float:
+    """``jnp.deg2rad`` of a Python number: a float32 product."""
+    return float(np.float32(deg) * np.float32(np.pi / 180.0))
+
+
+def build_range_image(pts: torch.Tensor, mask: torch.Tensor,
+                      phase: torch.Tensor, cfg) -> RangeImage:
+    """Scatter (N, 3) points + validity into the fixed (R, W) ring grid.
+
+    ``pts`` must already be deskewed; ``phase`` is the per-point sweep
+    phase of ``deskew.azimuth_phase`` (reused as the column coordinate, so
+    the grid follows acquisition order even after deskew moved the
+    Cartesian azimuth slightly).
+    """
+    R, W = cfg.n_rings, cfg.n_azimuth
+    n = pts.shape[0]
+    dev = pts.device
+    if n > (1 << _IDX_BITS):
+        raise ValueError(f"{n} points: raise _IDX_BITS for larger scans")
+
+    rng = fp.norm3(pts)
+    ok = mask & (rng >= cfg.min_range) & (rng <= cfg.max_range)
+    safe_rng = torch.where(ok, rng, 1.0)
+    elev = fp.arcsin(torch.clamp(pts[..., 2] / safe_rng, -1.0, 1.0))
+    if cfg.ring_mode == "hdl64e":
+        # Nearest beam of the nominal HDL-64E two-block elevation table.
+        beams = torch.tensor(hdl64e_beam_elevations(R), dtype=torch.float32,
+                             device=dev)
+        d = torch.abs(elev[:, None] - beams[None, :])  # (N, R)
+        gap = torch.min(d, dim=1).values
+        # The first beam at the least distance (torch.argmin promises no
+        # order among ties).
+        order = torch.arange(R, dtype=torch.int32, device=dev)
+        ring = torch.min(torch.where(d == gap[:, None], order[None, :], R),
+                         dim=1).values.to(torch.int32)
+        # Reject points falling between beams (noise / other sensors).
+        ok = ok & (gap < _deg2rad32(0.6))
+    else:
+        e_max = torch.tensor(_deg2rad32(cfg.elev_max_deg), device=dev)
+        e_min = torch.tensor(_deg2rad32(cfg.elev_min_deg), device=dev)
+        ring_f = (e_max - elev) / (e_max - e_min) * (R - 1)
+        ring = torch.clamp(torch.round(ring_f).to(torch.int32), 0, R - 1)
+        # Reject points whose elevation is far outside the laser fan.
+        ok = ok & (ring_f > -1.0) & (ring_f < R)
+
+    col = torch.clamp((phase * W).to(torch.int32), 0, W - 1)
+
+    # Deterministic nearest-return winner per cell via packed scatter-min
+    # (int64 keys: scatter_reduce_ has no int32 "amin" on every build).
+    rq = torch.clamp(torch.round(rng * _RANGE_Q), 0, _RANGE_MAX_Q).long()
+    key = (rq << _IDX_BITS) | torch.arange(n, dtype=torch.int64, device=dev)
+    sentinel = 2**31 - 1
+    key = torch.where(ok, key, sentinel)
+    # Invalid points all target cell 0 with the sentinel key (harmless).
+    flat_cell = torch.where(ok, ring * W + col, 0).long()
+    table = torch.full((R * W,), sentinel, dtype=torch.int64, device=dev)
+    table.scatter_reduce_(0, flat_cell, key, "amin", include_self=True)
+
+    cell_valid = table != sentinel
+    win_idx = torch.where(cell_valid, table & ((1 << _IDX_BITS) - 1), 0)
+    vals = torch.cat([pts, rng[:, None], phase[:, None]], dim=-1)
+    win = torch.where(cell_valid[:, None], vals[win_idx], 0.0)  # (R*W, 5)
+    return RangeImage(xyz=win[:, :3].reshape(R, W, 3),
+                      rng=win[:, 3].reshape(R, W),
+                      phase=win[:, 4].reshape(R, W),
+                      valid=cell_valid.reshape(R, W))
 
 
 def bin_scan_host(scan: np.ndarray, cfg):

@@ -1,7 +1,9 @@
 """Odometry step and frame loop (port of ``velo_tpu/pipeline/odometry.py``).
 
-Per frame: deskew the host-pre-binned (R, W, 5) grid into a range image ->
-curvature -> edge/planar features -> [fused: image pyramid, forward-
+Per frame: deskew the host-pre-binned (R, W, 5) grid into a range image
+(or, with ``prebin_host=False``, deskew the padded raw scan and scatter it
+into the grid on the device) -> curvature -> edge/planar features ->
+[fused: image pyramid, forward-
 backward KLT of the track table, consensus pre-gate of the depth tracks]
 -> one candidate search per target set -> scan-to-scan solve (+ visual
 reprojection and epipolar blocks), redeskew, re-solve -> plausibility gate
@@ -20,6 +22,7 @@ the caller passes another device.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -41,7 +44,7 @@ from velo_tpu_torch.vision import klt as klt_mod
 from velo_tpu_torch.vision import pyramid as pyr_mod
 from velo_tpu_torch.vision import tracks as tracks_mod
 
-_ITEM8 = "ROADMAP.md Queue 1 item 8 (off-default solver variants)"
+_ITEM12 = "ROADMAP.md Queue 1 item 12 (off-default solver variants)"
 
 
 class VisionCarry(NamedTuple):
@@ -84,25 +87,25 @@ class FrameResult(NamedTuple):
     vis_w_scale: torch.Tensor  # reprojection trust scale (1: no vision)
 
 
+# What a frame's diagnostics read when the frame predates them (the
+# defaults of the reference's ``FrameResult``).
+_RESULT_DEFAULTS = dict(
+    n_edge=0, n_planar=0, cost=0.0, degenerate=False, lm_accept=0,
+    lm_accept_map=0, implausible=False, map_applied=False,
+    prior_active=False, n_depth=0, vis_w_scale=1.0)
+
+
 def check_slice(cfg) -> None:
     """Raise NotImplementedError for configurations this port lacks."""
     sc = cfg.solver
     if cfg.use_vision:
         klt_mod.check_impl(cfg.vision)
-    if not cfg.prebin_host:
-        raise NotImplementedError(
-            f"prebin_host=False: the raw-scan range image is {_ITEM8}")
     if sc.ct_sweep:
-        raise NotImplementedError(f"ct_sweep=True: {_ITEM8}")
+        raise NotImplementedError(f"ct_sweep=True: {_ITEM12}")
     if sc.deskew_exact_lag:
-        raise NotImplementedError(f"deskew_exact_lag=True: {_ITEM8}")
-    if sc.degen_rel_min > 0.0:
-        raise NotImplementedError(f"degen_rel_min > 0: {_ITEM8}")
-    if sc.prior_obs_impl != "staged":
-        raise NotImplementedError(
-            f"prior_obs_impl={sc.prior_obs_impl!r}: {_ITEM8}")
+        raise NotImplementedError(f"deskew_exact_lag=True: {_ITEM12}")
     if sc.nn_engine != "dense":
-        raise NotImplementedError(f"nn_engine={sc.nn_engine!r}: {_ITEM8}")
+        raise NotImplementedError(f"nn_engine={sc.nn_engine!r}: {_ITEM12}")
     if sc.nn_approx_impl != "pallas":
         raise NotImplementedError(
             f"nn_approx_impl={sc.nn_approx_impl!r}: XLA's approx_max_k has no "
@@ -250,8 +253,10 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg,
          image: torch.Tensor | None = None,
          cam: cam_mod.Camera | None = None):
     """Process one frame: ``scan`` is a host-pre-binned (R, W, 5) grid and
-    ``scan_mask`` its (R, W) validity (``rangeimage.bin_scan_host``); with
-    ``cfg.use_vision``, ``image`` is the (H, W) float32 grayscale frame and
+    ``scan_mask`` its (R, W) validity (``rangeimage.bin_scan_host``), or,
+    with ``cfg.prebin_host=False``, the padded raw (N_MAX, 4) points and
+    their (N_MAX,) mask (``io.kitti.pad_scan``); with ``cfg.use_vision``,
+    ``image`` is the (H, W) float32 grayscale frame and
     ``cam`` its calibration.  All on the carry's device.  Returns
     (new_carry, FrameResult)."""
     check_slice(cfg)
@@ -262,8 +267,14 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg,
         raise ValueError("use_vision=True: step needs image= and cam=")
 
     # 1-2) Deskew with the predicted motion, then the LiDAR front end.
-    ri = ri_mod.range_image_from_grid(scan, scan_mask, carry.delta,
-                                      cfg.lidar, enabled=cfg.use_deskew)
+    if cfg.prebin_host:
+        ri = ri_mod.range_image_from_grid(scan, scan_mask, carry.delta,
+                                          cfg.lidar, enabled=cfg.use_deskew)
+    else:
+        pts3, phase = deskew_mod.deskew(
+            scan[:, :3], carry.delta, az_start=cfg.lidar.az_start,
+            enabled=cfg.use_deskew)
+        ri = ri_mod.build_range_image(pts3, scan_mask, phase, cfg.lidar)
     feats, tfeats = _extract_features_from_ri(ri, cfg)
     T_pred = se3.exp(carry.delta)
 
@@ -425,17 +436,33 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg,
     return new_carry, result
 
 
-def run_sequence(frames, cfg, carry: OdomCarry | None = None, device=None,
-                 cam: cam_mod.Camera | None = None):
-    """Stream numpy frames through :func:`step`: (grid, valid) pairs, or
-    (grid, valid, image) triples with ``cfg.use_vision`` and its ``cam``.
+def _stack_results(outs) -> dict:
+    """Per-frame results -> {field: numpy array over the frames}."""
+    return {k: torch.stack([getattr(o, k) for o in outs]).cpu().numpy()
+            for k in FrameResult._fields}
 
-    The port's stand-in for ``run_sequence_host``.  Without a ``carry`` it
-    starts from :func:`init_carry` on ``device`` (default: the card).
-    Per-frame results stay on the device until the end, so the loop never
-    waits for it.  Returns (poses (F,4,4) numpy, diagnostics dict of numpy
-    arrays, final carry).
+
+def run_sequence(frames, cfg, carry: OdomCarry | None = None, device=None,
+                 cam: cam_mod.Camera | None = None, checkpoint_path=None,
+                 checkpoint_every: int = 0, resume: bool = False):
+    """Stream numpy frames through :func:`step`: (scan, mask) pairs, or
+    (scan, mask, image) triples with ``cfg.use_vision`` and its ``cam``;
+    ``scan`` / ``mask`` are a pre-binned grid or, with
+    ``cfg.prebin_host=False``, a padded raw scan.  ``frames`` may be any
+    iterable, a generator included.
+
+    Without a ``carry`` it starts from :func:`init_carry` on ``device``
+    (default: the card).  Per-frame results stay on the device until the
+    end, so the loop never waits for it, except at a checkpoint: with
+    ``checkpoint_path`` and ``checkpoint_every`` the carry and the
+    trajectory so far come to the host every N frames and are dumped
+    (``pipeline.checkpoint``).  ``resume=True`` reloads both and skips the
+    frames already processed, so a resumed run returns the full
+    trajectory, identical to an uninterrupted one.  Returns (poses
+    (F,4,4) numpy, diagnostics dict of numpy arrays, final carry).
     """
+    from velo_tpu_torch.pipeline import checkpoint as ckpt
+
     if carry is None:
         carry = init_carry(cfg, device)
     dev = carry.T_w.device
@@ -447,16 +474,69 @@ def run_sequence(frames, cfg, carry: OdomCarry | None = None, device=None,
     def put(x, dtype):
         return torch.as_tensor(np.asarray(x, dtype)).to(dev)
 
-    outs = []
-    for frame in frames:
+    skip = 0
+    done = None  # the history that is on the host already
+    if resume:
+        if not (checkpoint_path and os.path.exists(checkpoint_path)):
+            raise FileNotFoundError(
+                f"--resume requires an existing checkpoint: {checkpoint_path}")
+        carry = ckpt.load_carry(checkpoint_path, carry)
+        skip = carry.frame_host
+        hist = ckpt.load_history(checkpoint_path)
+        if "poses" not in hist:
+            raise ValueError(
+                f"checkpoint {checkpoint_path} predates trajectory history; "
+                "rerun from scratch (resume would return a truncated file)")
+        done = {"T_w": hist["poses"]}
+        for k in FrameResult._fields[1:]:
+            # A checkpoint written before a diagnostic existed replays as
+            # the field's scan-time default for those frames.
+            done[k] = (hist[k] if k in hist else np.asarray(
+                [_RESULT_DEFAULTS[k]] * len(hist["poses"])))
+
+    outs = []  # the results that are still on the device
+
+    def flush():
+        """Bring ``outs`` to the host, behind the history there."""
+        nonlocal done
+        if outs:
+            new = _stack_results(outs)
+            outs.clear()
+            done = new if done is None else {
+                k: np.concatenate([done[k].astype(new[k].dtype), new[k]])
+                for k in new}
+        return done
+
+    for i, frame in enumerate(frames):
+        if i < skip:
+            continue
         image = put(frame[2], np.float32) if cfg.use_vision else None
         carry, out = step(carry, put(frame[0], np.float32),
                           put(frame[1], bool), cfg, image=image, cam=cam)
         outs.append(out)
-    stacked = {k: torch.stack([getattr(o, k) for o in outs]).cpu().numpy()
-               for k in FrameResult._fields}
+        if checkpoint_path and checkpoint_every and (
+                (i + 1) % checkpoint_every == 0):
+            hist = dict(flush())
+            hist["poses"] = hist.pop("T_w")
+            ckpt.save_carry(checkpoint_path, carry, frame_idx=i + 1,
+                            history=hist)
+    if flush() is None:
+        raise ValueError("run_sequence: no frames")
+    stacked = dict(done)
     poses = stacked.pop("T_w")
     return poses, stacked, carry
+
+
+def run_sequence_host(frames, cfg, carry: OdomCarry | None = None, cam=None,
+                      checkpoint_path=None, checkpoint_every: int = 0,
+                      resume: bool = False, device=None):
+    """:func:`run_sequence` with the reference's signature and return
+    value: (poses (F,4,4) numpy, diagnostics dict of numpy arrays)."""
+    poses, diags, _ = run_sequence(
+        frames, cfg, carry=carry, device=device, cam=cam,
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+        resume=resume)
+    return poses, diags
 
 
 def carry_from_jax_numpy(tree, device=None) -> OdomCarry:

@@ -71,7 +71,7 @@ def _check_engine(cfg) -> None:
     if cfg.nn_engine != "dense":
         raise NotImplementedError(
             f"nn_engine={cfg.nn_engine!r}: the voxel-hash engine is ROADMAP.md "
-            "Queue 1 item 8 (off-default solver variants)")
+            "Queue 1 item 12 (off-default solver variants)")
 
 
 def build_candidates(targets: TargetSet, queries: torch.Tensor,
@@ -327,6 +327,16 @@ def _obs_scaled_prior(cfg, w_prior, r_pr, H_obs):
     return _obs_prior_terms(obs_prior_basis(cfg, w_prior, H_obs), r_pr)
 
 
+def _use_deferred(cfg, prior_T) -> bool:
+    """Routing of ``prior_obs_impl="deferred"`` / ``"deferred_tail"``: the
+    deferred-reject LM loops apply exactly when the obs-scaled prior is
+    active (the condition under which :func:`_make_stage` returns a
+    stage)."""
+    return (cfg.prior_obs_impl in ("deferred", "deferred_tail")
+            and prior_T is not None and cfg.prior_obs_gain > 0.0
+            and (cfg.prior_weight_trans > 0 or cfg.prior_weight_rot > 0))
+
+
 def _make_stage(cfg, prior_T, prior_scale, build_noprior):
     """Per-LM-iteration observability staging for :func:`lm_solve`.
 
@@ -364,8 +374,10 @@ def _solve(edges, edge_mask, planars, planar_mask, T_init, cfg, outer,
            prior_T, prior_scale, fit, vis=None):
     """The outer loop shared by both solves: ``fit(T) -> (a, b, e_ok, n, d,
     p_ok, quality_kw)`` re-searches correspondences at T, then LM runs on
-    them (and on ``vis``'s visual blocks) with the staged obs prior, or the
-    classic system without it."""
+    them (and on ``vis``'s visual blocks): with the staged obs prior, with
+    the deferred-reject loop on the full dynamic system
+    (``prior_obs_impl="deferred"``) or on the stage (``"deferred_tail"``),
+    or on the classic system when the obs prior is inactive."""
     dev = T_init.device
     T = T_init
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -377,14 +389,16 @@ def _solve(edges, edge_mask, planars, planar_mask, T_init, cfg, outer,
         a, b, e_ok, n, d, p_ok, q_kw = fit(T)
         corr = (edges, edge_mask, a, b, e_ok, planars, planar_mask, n, d,
                 p_ok, cfg)
-        stage = _make_stage(cfg, prior_T, prior_scale,
-                            make_lidar_system(*corr, vis=vis, **q_kw))
+        deferred = _use_deferred(cfg, prior_T)
+        stage = (None if deferred and cfg.prior_obs_impl == "deferred"
+                 else _make_stage(cfg, prior_T, prior_scale,
+                                  make_lidar_system(*corr, vis=vis, **q_kw)))
         build = None if stage is not None else make_lidar_system(
             *corr, vis=vis, prior_T=prior_T, prior_scale=prior_scale, **q_kw)
         n_e = torch.sum(e_ok, dtype=torch.int32)
         n_p = torch.sum(p_ok, dtype=torch.int32)
         enough = (n_e + n_p) >= _MIN_CORR
-        T_new, st = lm_solve(build, T, cfg, stage=stage)
+        T_new, st = lm_solve(build, T, cfg, stage=stage, deferred=deferred)
         T = torch.where(enough, T_new, T)
         diag = SolveDiag(n_edge=n_e, n_planar=n_p, cost=st.cost,
                          degenerate=~enough,

@@ -1,5 +1,6 @@
 """Fixed-iteration 6-DoF Levenberg-Marquardt on SE(3)
-(port of ``lm_solve`` in ``velo_tpu/solve/lm.py``).
+(port of ``lm_solve`` and its deferred-reject loops in
+``velo_tpu/solve/lm.py``).
 
 A dense-normal-equations LM with Jacobi scaling and an accept/reject
 damping schedule, run as a fixed number of masked iterations: every
@@ -13,6 +14,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from velo_tpu_torch import fp
+from velo_tpu_torch.geom import linalg as lin3
 from velo_tpu_torch.geom import se3
 
 
@@ -25,8 +27,74 @@ class LMState(NamedTuple):
     n_accept: torch.Tensor  # int32: accepted steps
 
 
+def _keep_projector(H0: torch.Tensor, cfg) -> torch.Tensor | None:
+    """Degeneracy-aware solution remapping: the (6, 6) projector onto the
+    well-observed directions of ``H0``, or None when the remap is off.
+
+    The translation and rotation 3x3 blocks are analyzed separately (their
+    units differ), with a gate relative to each block's strongest
+    eigenvalue; the weak directions are projected out of every step so the
+    motion prior survives along them."""
+    if cfg.degen_rel_min <= 0.0:
+        return None
+    B = torch.stack([H0[:3, :3], H0[3:, 3:]])
+    evals, V = lin3.sym_eig3x3(0.5 * (B + B.transpose(-1, -2)))
+    keep = (evals > cfg.degen_rel_min * evals[..., 2:3]).to(H0.dtype)
+    P_blk = fp.einsum("bik,bk,bjk->bij", V, keep, V)
+    return torch.block_diag(P_blk[0], P_blk[1])
+
+
+def _damped_step(H, g, lam, P_keep):
+    """The LM step from one linearization: (delta (6,), bad)."""
+    eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
+    # Jacobi scaling: solve in units of sqrt(diag(H)).
+    D = fp.sqrt(torch.diagonal(H) + 1e-8)
+    Hs = H / (D[:, None] * D[None, :])
+    gs = g / D
+    A = Hs + lam * eye6 + 1e-7 * eye6
+    # cholesky_ex reports a non-PD matrix in `info` instead of raising
+    # (and without a host sync); that step is then rejected.  Solved in
+    # float64 so that CPU and GPU libraries round the step alike.
+    L, info = torch.linalg.cholesky_ex(A.to(fp.F64))
+    delta = torch.cholesky_solve(-gs.to(fp.F64)[:, None], L)[:, 0]
+    delta = delta.to(D.dtype) / D
+    if P_keep is not None:
+        delta = fp.matmul(P_keep, delta[:, None])[:, 0]
+    bad = (info != 0) | ~torch.all(torch.isfinite(delta))
+    return torch.where(bad, 0.0, delta), bad
+
+
+def _init_state(T0, cfg, cost) -> LMState:
+    dev, dt = T0.device, T0.dtype
+    return LMState(
+        T=T0,
+        lam=torch.tensor(cfg.lm_lambda_init, dtype=dt, device=dev),
+        cost=cost,
+        converged=torch.zeros((), dtype=torch.bool, device=dev),
+        last_delta=torch.tensor(torch.inf, dtype=dt, device=dev),
+        n_accept=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
+def _advance(st: LMState, cfg, accept, T_try, cost_try, cost, delta):
+    """The state after one accept/reject decision."""
+    lam_new = torch.where(accept, st.lam * cfg.lm_lambda_down,
+                          st.lam * cfg.lm_lambda_up)
+    lam_new = torch.clamp(lam_new, 1e-9, 1e6)
+    step = fp.norm(delta)
+    return LMState(
+        T=torch.where(accept, T_try, st.T),
+        lam=torch.where(st.converged, st.lam, lam_new),
+        cost=torch.where(accept, cost_try, cost),
+        converged=st.converged | (accept & (step < cfg.converge_tol)),
+        last_delta=torch.where(accept, step, st.last_delta),
+        n_accept=st.n_accept + accept.to(torch.int32),
+    )
+
+
 def lm_solve(build_system: Callable | None, T0: torch.Tensor, cfg,
-             iters: int | None = None, stage: Callable | None = None):
+             iters: int | None = None, stage: Callable | None = None,
+             deferred: bool = False):
     """Run masked fixed-iteration LM from T0; returns (T_opt, final state).
 
     ``build_system(T) -> (H, g, cost)`` linearizes the classic system.
@@ -35,33 +103,33 @@ def lm_solve(build_system: Callable | None, T0: torch.Tensor, cfg,
     prior's eigenbasis is re-derived for the first
     ``cfg.prior_obs_stage_iters`` iterations and then reused, and
     ``trial_cost`` scores candidate steps under the iteration's basis.
+
+    ``deferred`` selects the deferred-reject loops: with ``build_system``
+    (the full dynamic system, ``prior_obs_impl="deferred"``) each trial
+    point is fully linearized and its cost decides accept/reject; with
+    ``stage`` (``"deferred_tail"``) the same, except that the last
+    iteration scores its trial under the carried basis.
     """
-    if cfg.prior_obs_impl in ("deferred", "deferred_tail"):
-        raise NotImplementedError(
-            f"prior_obs_impl={cfg.prior_obs_impl!r}: ROADMAP.md Queue 1 "
-            "item 8 (off-default solver variants)")
-    if cfg.degen_rel_min > 0.0:
-        raise NotImplementedError(
-            "degen_rel_min > 0 (degeneracy remap): ROADMAP.md Queue 1 item 8 "
-            "(off-default solver variants)")
     iters = cfg.lm_iters if iters is None else iters
+    if deferred:
+        if stage is not None:
+            return _lm_solve_deferred_tail(stage, T0, cfg, iters)
+        return _lm_solve_deferred(build_system, T0, cfg, iters)
     dev, dt = T0.device, T0.dtype
-    eye6 = torch.eye(6, dtype=dt, device=dev)
 
     def cost_only(T):
         return build_system(T)[2]
 
+    P_keep = None
+    if cfg.degen_rel_min > 0.0:
+        P_keep = _keep_projector(
+            stage(T0)[0] if stage is not None else build_system(T0)[0], cfg)
+
     basis = None
-    st = LMState(
-        T=T0,
-        lam=torch.tensor(cfg.lm_lambda_init, dtype=dt, device=dev),
-        # Only read when iters == 0; every iteration re-linearizes at st.T.
-        cost=(cost_only(T0) if stage is None and iters == 0
-              else torch.tensor(torch.inf, dtype=dt, device=dev)),
-        converged=torch.zeros((), dtype=torch.bool, device=dev),
-        last_delta=torch.tensor(torch.inf, dtype=dt, device=dev),
-        n_accept=torch.zeros((), dtype=torch.int32, device=dev),
-    )
+    # The initial cost is only read when iters == 0; every iteration
+    # re-linearizes at st.T.
+    st = _init_state(T0, cfg, cost_only(T0) if stage is None and iters == 0
+                     else torch.tensor(torch.inf, dtype=dt, device=dev))
     for i in range(iters):
         if stage is not None:
             reuse = basis if i >= cfg.prior_obs_stage_iters else None
@@ -69,34 +137,66 @@ def lm_solve(build_system: Callable | None, T0: torch.Tensor, cfg,
         else:
             H, g, cost = build_system(st.T)
             trial_cost = cost_only
-        # Jacobi scaling: solve in units of sqrt(diag(H)).
-        D = fp.sqrt(torch.diagonal(H) + 1e-8)
-        Hs = H / (D[:, None] * D[None, :])
-        gs = g / D
-        A = Hs + st.lam * eye6 + 1e-7 * eye6
-        # cholesky_ex reports a non-PD matrix in `info` instead of raising
-        # (and without a host sync); that step is then rejected.  Solved in
-        # float64 so that CPU and GPU libraries round the step alike.
-        L, info = torch.linalg.cholesky_ex(A.to(fp.F64))
-        delta = torch.cholesky_solve(-gs.to(fp.F64)[:, None], L)[:, 0]
-        delta = delta.to(D.dtype) / D
-        bad = (info != 0) | ~torch.all(torch.isfinite(delta))
-        delta = torch.where(bad, 0.0, delta)
-
+        delta, bad = _damped_step(H, g, st.lam, P_keep)
         T_try = se3.compose(se3.exp(delta), st.T)
         cost_try = trial_cost(T_try)
         accept = (cost_try < cost) & ~bad & ~st.converged
+        st = _advance(st, cfg, accept, T_try, cost_try, cost, delta)
+    return st.T, st
 
-        lam_new = torch.where(accept, st.lam * cfg.lm_lambda_down,
-                              st.lam * cfg.lm_lambda_up)
-        lam_new = torch.clamp(lam_new, 1e-9, 1e6)
-        step = fp.norm(delta)
-        st = LMState(
-            T=torch.where(accept, T_try, st.T),
-            lam=torch.where(st.converged, st.lam, lam_new),
-            cost=torch.where(accept, cost_try, cost),
-            converged=st.converged | (accept & (step < cfg.converge_tol)),
-            last_delta=torch.where(accept, step, st.last_delta),
-            n_accept=st.n_accept + accept.to(torch.int32),
-        )
+
+def _lm_solve_deferred(build_system, T0, cfg, iters: int):
+    """Deferred-reject LM: the state carries the last accepted
+    linearization (H, g, cost at T).  Each iteration takes the damped step
+    from it and fully linearizes the trial point; the trial's cost decides
+    accept/reject and, on accept, its (H, g) seed the next step: one system
+    build per iteration plus the initial one, with the accept sequence of
+    the classic loop on the same dynamic cost."""
+    H, g, c0 = build_system(T0)
+    P_keep = _keep_projector(H, cfg)
+    st = _init_state(T0, cfg, c0)
+    for _ in range(iters):
+        delta, bad = _damped_step(H, g, st.lam, P_keep)
+        T_try = se3.compose(se3.exp(delta), st.T)
+        H_try, g_try, cost_try = build_system(T_try)
+        # A non-finite trial linearization must not be accepted: its H/g
+        # would poison every later step.
+        bad_try = ~(torch.isfinite(cost_try)
+                    & torch.all(torch.isfinite(g_try)))
+        accept = (cost_try < st.cost) & ~bad & ~bad_try & ~st.converged
+        H = torch.where(accept, H_try, H)
+        g = torch.where(accept, g_try, g)
+        st = _advance(st, cfg, accept, T_try, cost_try, st.cost, delta)
+    return st.T, st
+
+
+def _lm_solve_deferred_tail(stage, T0, cfg, iters: int):
+    """Deferred-reject LM with a staged final accept.
+
+    As :func:`_lm_solve_deferred` for the first ``iters - 1`` steps, each
+    trial linearized by ``stage(T_try)`` (basis re-derived there, so the
+    costs are the dynamic ones).  The last iteration's trial is scored
+    under the basis carried with the current linearization, where the
+    frozen cost coincides with the dynamic one; its H and g are not used.
+    """
+    H, g, c0, _, basis = stage(T0)
+    P_keep = _keep_projector(H, cfg)
+    st = _init_state(T0, cfg, c0)
+    for i in range(iters):
+        delta, bad = _damped_step(H, g, st.lam, P_keep)
+        T_try = se3.compose(se3.exp(delta), st.T)
+        if i == iters - 1:
+            cost_try = stage(T_try, basis)[2]
+            accept = ((cost_try < st.cost) & ~bad & torch.isfinite(cost_try)
+                      & ~st.converged)
+        else:
+            H_t, g_t, cost_try, _, basis_t = stage(T_try)
+            bad_try = ~(torch.isfinite(cost_try)
+                        & torch.all(torch.isfinite(g_t)))
+            accept = (cost_try < st.cost) & ~bad & ~bad_try & ~st.converged
+            H = torch.where(accept, H_t, H)
+            g = torch.where(accept, g_t, g)
+            basis = type(basis)(*(torch.where(accept, a, b)
+                                  for a, b in zip(basis_t, basis)))
+        st = _advance(st, cfg, accept, T_try, cost_try, st.cost, delta)
     return st.T, st
