@@ -9,7 +9,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
 2. build: compiles ``velo_tpu_torch/csrc/dist_topk.cu`` and ``klt_l0.cu``
    with nvcc (sm_90a), one process each, started together;
 3. fixture: one full-scale drive (64 x 2048 LiDAR, 192 x 640 images,
-   8 frames, seed 0), host-pre-binned once and shared by the phases below;
+   4 frames, seed 0), host-pre-binned once and shared by the phases below;
 4. kernel checks at the shapes of the odometry path, each kernel against
    its plain PyTorch version on the card (bitwise), with CUDA-event times
    of the wrapper, the plain version and, where one exists, a PyTorch
@@ -22,7 +22,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    of frame 0 tracked into frame 1 (8 iterations) and back (4 iterations);
    then edge cases of both, bitwise too: fewer than k live bins,
    duplicated targets, Q = 1000; NaN, border and textureless tracks;
-5. fused pipeline: the 8 frames through ``pipeline.odometry.run_sequence``
+5. fused pipeline: the 4 frames through ``pipeline.odometry.run_sequence``
    at the bench's fused configuration with ``klt_impl="pallas"``; it must
    launch ``klt_l0`` 2 and ``dist_topk`` 4 times per frame, keep the whole
    carry on the card, stay within the pose gates against ground truth,
@@ -33,11 +33,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    profile beside the kernel's, to decide which should be the default;
 7. LiDAR-only pipeline: the same frames without images, the checks of the
    first slice (4 ``dist_topk`` launches per frame, ground truth, CPU);
-8. export: ``io.fake_kitti.export`` writes 8 full-scale frames (HDL-64E
+8. export: ``io.fake_kitti.export`` writes 4 full-scale frames (HDL-64E
    beam table, sweep start at the rear) as a KITTI sequence directory; the
    scans and PNGs read back equal to what was written;
 9. cli-kitti: ``velo_tpu_torch.cli.main`` in process on that directory,
-   fused with ``klt_impl=pallas``, with a checkpoint every 4 frames and the
+   fused with ``klt_impl=pallas``, with a checkpoint every 2 frames and the
    smoother (window 8, 2 passes): launch counts (forward 4 ``dist_topk``
    and 2 ``klt_l0`` per frame, smoother 2 ``dist_topk`` per frame and pass,
    at the window-map shapes), relative motion within 10 cm of ground truth
@@ -47,7 +47,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
    forward run and one smoother pass against ``--device cpu``;
 10. cli-variants: ``--synthetic --rings 64 --azimuth 2048 --no-vision`` over
     4 frames, plain, ``--fast`` and ``--no-prebin``: ground truth, card
-    against CPU, raw-scan against pre-binned.
+    against CPU, raw-scan against pre-binned;
+11. batch (config 5, this slice's path): ``--synthetic --batch 4 --frames 4
+    --rings 64 --azimuth 2048`` in process, fused with ``--set
+    v:klt_impl=pallas`` and ``--no-vision`` (seeds 100-103, the batch
+    mode's 128 x 384 images; the drives are simulated in worker processes
+    while the phases above run): 16 ``dist_topk`` and 8 ``klt_l0`` launches
+    per run whatever B, each sequence within the ground-truth gates, the
+    library's ``run_sequences`` on the same inputs byte-equal to the pose
+    files and, sequence by sequence, bitwise equal to single-sequence
+    ``run_sequence`` runs on the card (else the first differing frame and
+    field, and 5 cm / 0.1 deg), sequence 0 to the CPU; ``--shard`` on the
+    one card byte-equal to the unsharded run;
+12. batched kernels: both under ``torch.func.vmap`` at B = 4 and 8 (inputs
+    batched, and shared at batch stride 0): one launch per call, each
+    sequence bitwise equal to its unbatched launch and to the plain
+    version, with wrapper, kernel-alone, plain, library and bound times;
+13. batch throughput: ``run_sequences`` at B = 1, 2, 4, 8 (aggregate
+    frames/s); at B = 1 and 8 the host's time per step call and a profile
+    of one step (busy share, card kernels); the plain step's host time.
+
+Each phase prints its seconds, and the pipeline line carries them.
 
 Prints a JSON line of pipeline results, one of per-kernel results, then as
 its last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -79,7 +99,11 @@ SMOOTH_WINDOW, SMOOTH_PASSES = 8, 2  # the command line's defaults
 SMOOTH_SHAPES = [(1024, (2 * SMOOTH_WINDOW + 1) * 3072, 32),
                  (2048, (2 * SMOOTH_WINDOW + 1) * 6144, 32)]
 K = 16
-N_FRAMES = 8
+# Frames of the fixture cells, the KITTI export and the command line on it:
+# 8 until the batch phase came, cut to 4 to keep the script inside its
+# time limit (the smoother's window maps keep their 2 * 8 + 1 frames of
+# padded shape).
+N_FRAMES = 4
 N_VARIANT_FRAMES = 4
 GATE_REL_M = 0.10  # median relative per-frame motion vs ground truth (m)
 KITTI_SET = "v:klt_impl=pallas"  # --set of the command line's KITTI run
@@ -107,6 +131,18 @@ DIST_TOPK_OPS_PER_PAIR = 7  # 4 products and 3 sums of s per query-target
 # rate, 8 lane slots on 132 SMs x 128 float32 lanes at 1.98 GHz.
 DIST_TOPK_SLOTS_PER_PAIR = 8
 FP32_LANE_SLOTS_S = 132 * 128 * 1.98e9
+
+# The batch mode (config 5) at full width: the command line's --batch with
+# its 128 x 384 images, 4 sequences (seeds 100-103) x 4 frames (the
+# reference's default is 20 frames; the depth is cut to keep the script
+# inside its time limit).
+BATCH, BATCH_FRAMES = 4, 4
+BATCH_H, BATCH_W, BATCH_K = 128, 384, 128
+BATCH_SIZES = (1, 2, 4, 8)  # throughput; 8 is the four sequences twice
+BATCH_ARGV = ["--synthetic", "--batch", str(BATCH), "--frames",
+              str(BATCH_FRAMES), "--rings", str(RINGS), "--azimuth", str(AZ)]
+BATCH_MODES = {"fused": ["--set", "v:klt_impl=pallas"],
+               "lidar": ["--no-vision"]}
 
 
 def card_check() -> str:
@@ -138,23 +174,65 @@ def build() -> None:
           flush=True)
 
 
+def _fixture_key(kw) -> tuple:
+    return tuple(sorted((k, v.tobytes() if isinstance(v, np.ndarray) else v)
+                        for k, v in kw.items()))
+
+
+def _simulate(kw):
+    """One drive, in a worker process of :func:`prefetch_fixtures`."""
+    from velo_tpu_torch.io import fixtures
+
+    return fixtures.make_fixture(**kw)
+
+
+_FIXTURES: dict = {}
+
+
 def memoize_fixtures() -> None:
     """The drive simulator is a pure function of its arguments and takes
     10-40 s at full scale; the command line simulates anew on every call
-    and the phases below ask for the same drives several times."""
+    and the phases below ask for the same drives several times.  A drive
+    asked for without images is the one with images, when that was made:
+    the renderer draws no random numbers, so the scans are the same."""
     from velo_tpu_torch.io import fixtures
 
-    make, cache = fixtures.make_fixture, {}
+    make = fixtures.make_fixture
 
     def make_fixture(**kw):
-        key = tuple(sorted(
-            (k, v.tobytes() if isinstance(v, np.ndarray) else v)
-            for k, v in kw.items()))
-        if key not in cache:
-            cache[key] = make(**kw)
-        return cache[key]
+        key = _fixture_key(kw)
+        if key not in _FIXTURES and kw.get("with_images") is False:
+            key = _fixture_key({**kw, "with_images": True})
+        if key not in _FIXTURES:
+            _FIXTURES[_fixture_key(kw)] = make(**kw)
+            key = _fixture_key(kw)
+        return _FIXTURES[key]
 
     fixtures.make_fixture = make_fixture
+
+
+def start_prefetch(kws):
+    """Start simulating drives in worker processes (spawned, one per
+    drive), while the phases before the one that needs them run; the
+    caller shuts the pool down."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(
+        max_workers=len(kws), mp_context=multiprocessing.get_context("spawn"))
+    return pool, kws, [pool.submit(_simulate, kw) for kw in kws]
+
+
+def finish_prefetch(job) -> None:
+    """Wait for :func:`start_prefetch`'s drives and put them into the memo
+    of :func:`memoize_fixtures`."""
+    pool, kws, futures = job
+    t0 = time.perf_counter()
+    for kw, fut in zip(kws, futures):
+        _FIXTURES[_fixture_key(kw)] = fut.result()
+    pool.shutdown()
+    print(f"fixtures: {len(kws)} drives simulated in worker processes, "
+          f"waited {time.perf_counter() - t0:.1f} s for them", flush=True)
 
 
 def make_frames():
@@ -266,7 +344,8 @@ def dist_topk_check(dev) -> dict:
         plain_ms = median_ms(
             lambda: dist_topk_reference(tt, tmt, qt, k=K, bin_factor=bf))
         # The kernel alone: launches replayed from a CUDA graph.
-        kernel_ms = graph_ms(lambda: dtk._launch(tt, tmt, qt, K, bf))
+        kernel_ms = graph_ms(lambda: dtk._launch(tt[None], tmt[None],
+                                                 qt[None], K, bf))
         # Yardstick, used nowhere in the port: exact distances + top-16.
         library_ms = median_ms(lambda: torch.topk(
             torch.cdist(qt, tt), K, dim=1, largest=False))
@@ -385,7 +464,8 @@ def klt_l0_check(dev, fx) -> dict:
             raise AssertionError(f"klt_l0 {name}: only {n_ok} tracks ok")
         ms = median_ms(lambda: kl.track_level0(a, b, up, uc, vc, iters))
         # The kernel alone: launches replayed from a CUDA graph.
-        kernel_ms = graph_ms(lambda: kl._launch(a, b, up, uc, iters))
+        kernel_ms = graph_ms(lambda: kl._launch(a[None], b[None], up[None],
+                                                uc[None], iters))
         plain_ms = median_ms(
             lambda: kl.track_level0_reference(a, b, up, uc, vc, iters),
             bursts=7, calls=3)
@@ -449,6 +529,24 @@ def _carry_leaves(carry):
     return leaves
 
 
+def _device_time(prof):
+    """(summed card kernel seconds, kernel count, seconds of each of the
+    port's two kernels) of a torch.profiler run, read from the raw Kineto
+    events: ``prof.events()`` would first build a Python object for each
+    of the ~0.5 million events of a profiled step, which took a minute a
+    frame on the card's host."""
+    busy, n, own = 0.0, 0, {"klt_l0": 0.0, "dist_topk": 0.0}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            dt = ev.duration_ns() * 1e-9
+            busy += dt
+            n += 1
+            for key in own:
+                if key in ev.name():
+                    own[key] += dt
+    return busy, n, own
+
+
 def _profile(frames, cfg, carry, cam) -> dict:
     """torch.profiler over 2 frames from a warm carry: wall time, summed
     card kernel time, kernel count, and the two port kernels' shares."""
@@ -463,16 +561,7 @@ def _profile(frames, cfg, carry, cam) -> dict:
         odometry.run_sequence(frames, cfg, carry=carry, cam=cam)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, n, own = 0.0, 0, {"klt_l0": 0.0, "dist_topk": 0.0}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            dt = getattr(ev, "device_time", None)
-            dt = getattr(ev, "cuda_time", 0.0) if dt is None else dt
-            busy += dt * 1e-6
-            n += 1
-            for key in own:
-                if key in ev.name:
-                    own[key] += dt * 1e-6
+    busy, n, own = _device_time(prof)
     return {"frames": len(frames), "wall_s": wall, "device_s": busy,
             "kernels": n, "busy_share": busy / wall,
             "klt_l0_s": own["klt_l0"], "dist_topk_s": own["dist_topk"]}
@@ -859,37 +948,434 @@ def cli_variants(tmp) -> dict:
     return out
 
 
+def batch_fixture_kws():
+    """The drives the command line's --batch simulates (with images: the
+    LiDAR-only run takes the same scans from the memo)."""
+    return [dict(n_frames=BATCH_FRAMES, n_rings=RINGS, n_azimuth=AZ,
+                 with_images=True, height=BATCH_H, width=BATCH_W,
+                 seed=100 + b) for b in range(BATCH)]
+
+
+def _first_difference(batched, single, diag_b, diag_s):
+    """(frame, field) where a batched sequence first differs from its
+    single-sequence run, or None."""
+    fields = [("T_w", batched, single)] + [
+        (k, diag_b[k], diag_s[k]) for k in diag_s]
+    for f in range(len(single)):
+        for name, a, b in fields:
+            if not np.array_equal(a[f], b[f]):
+                return f, name
+    return None
+
+
+def _hold_equal(what, batched, single, diag_b, diag_s) -> dict:
+    """Bitwise, or else report where and hold to 5 cm / 0.1 deg."""
+    first = _first_difference(batched, single, diag_b, diag_s)
+    dt, dr = _pose_errors(batched, single)
+    if first is None:
+        print(f"{what}: bitwise equal (poses and every diagnostic)",
+              flush=True)
+    else:
+        print(f"{what}: NOT bitwise: first at frame {first[0]}, field "
+              f"{first[1]}; poses differ by up to {dt.max():.6f} m, "
+              f"{dr.max():.6f} deg", flush=True)
+        if dt.max() > GATE_CPU_M or dr.max() > GATE_CPU_DEG:
+            raise AssertionError(f"{what}: beyond 5 cm / 0.1 deg")
+    return {"bitwise": first is None, "first_difference": first,
+            "diff_m": float(dt.max()), "diff_deg": float(dr.max())}
+
+
+def _sequence_frames(bi, b):
+    return [(bi.scans[b, f], bi.masks[b, f])
+            + ((bi.images[b, f],) if bi.cfg.use_vision else ())
+            for f in range(bi.scans.shape[1])]
+
+
+def batch_cli(dev, tmp, smi) -> dict:
+    """``--batch 4`` through the command line in process, fused (klt_l0 at
+    level 0) and LiDAR-only: launches independent of B, ground truth per
+    sequence, the library's batched run equal to the command line's files
+    and, sequence by sequence, to single-sequence runs on the card, and
+    sequence 0 to the CPU; then ``--shard`` on the one card."""
+    from velo_tpu_torch import cli
+    from velo_tpu_torch.io import kitti
+    from velo_tpu_torch.pipeline import batch, odometry
+
+    out, inputs = {}, {}
+    for mode, flags in BATCH_MODES.items():
+        argv = BATCH_ARGV + flags
+        res, _, launches = _cli(
+            argv + ["--out", os.path.join(tmp, "b-" + mode)])
+        # Kernel launches per step do not depend on B: one batched launch
+        # per call site (a loop over sequences would launch B times).
+        _expect_launches(f"batch {mode}", launches, 4 * BATCH_FRAMES,
+                         2 * BATCH_FRAMES if mode == "fused" else 0)
+        if (res["batch"], res["frames"], res["sharded"], res["prebin"],
+                len(res["sequences"])) != (BATCH, BATCH_FRAMES, False, True,
+                                           BATCH):
+            raise AssertionError(f"batch {mode}: result line {res}")
+        bi = cli.batch_inputs(cli.build_parser().parse_args(argv), dev)
+        inputs[mode] = bi
+        files = [kitti.read_poses(os.path.join(tmp, "b-" + mode,
+                                               f"seq{b:02d}.txt"))
+                 for b in range(BATCH)]
+        gt_err = []
+        for b in range(BATCH):
+            gt = np.linalg.inv(bi.gts[b][0]) @ bi.gts[b]
+            gt_t, gt_r = _pose_errors(files[b], gt)
+            gt_err.append((float(gt_t.max()), float(gt_r.max())))
+            if gt_t.max() > GATE_GT_M or gt_r.max() > GATE_GT_DEG[mode]:
+                raise AssertionError(f"batch {mode} sequence {b}: pose error "
+                                     f"vs ground truth {gt_err[-1]}")
+        print(f"batch {mode}: {BATCH} x {BATCH_FRAMES} frames at {RINGS} x "
+              f"{AZ}, launches {launches}, {res['agg_fps']} frames/s in all "
+              f"on {smi}; worst pose error vs ground truth per sequence "
+              f"{gt_err}", flush=True)
+
+        # The library on the same inputs: the command line's pose files.
+        poses, diag = batch.run_sequences(bi.scans, bi.masks, bi.cfg,
+                                          images=bi.images, cam=bi.cam,
+                                          device=dev)
+        for b in range(BATCH):
+            path = os.path.join(tmp, f"lib-{mode}-{b}.txt")
+            kitti.write_poses(path, odometry.velo_to_cam_trajectory(
+                poses[b], bi.tcvs[b]))
+            with open(path, "rb") as x, open(os.path.join(
+                    tmp, "b-" + mode, f"seq{b:02d}.txt"), "rb") as y:
+                if x.read() != y.read():
+                    raise AssertionError(f"batch {mode}: the library's "
+                                         f"sequence {b} is not the command "
+                                         "line's pose file")
+        single = []
+        for b in range(BATCH):
+            p1, d1, _ = odometry.run_sequence(_sequence_frames(bi, b),
+                                              bi.cfg, cam=bi.cam, device=dev)
+            single.append(_hold_equal(
+                f"batch {mode} sequence {b} vs its single-sequence run on "
+                "the card", poses[b], p1,
+                {k: v[b] for k, v in diag.items()}, d1))
+        t0 = time.perf_counter()
+        pc, dc, _ = odometry.run_sequence(_sequence_frames(bi, 0), bi.cfg,
+                                          cam=bi.cam, device="cpu")
+        cpu = _hold_equal(f"batch {mode} sequence 0 vs the port's CPU run "
+                          f"({time.perf_counter() - t0:.1f} s)", poses[0],
+                          pc, {k: v[0] for k, v in diag.items()}, dc)
+        out[mode] = {"launches": launches, "cli_agg_fps":
+                     res["agg_fps"], "gt_err": gt_err, "single": single,
+                     "cpu_seq0": cpu}
+
+    # --shard on one card: the batch is one chunk, the unsharded result.
+    argv = BATCH_ARGV + BATCH_MODES["lidar"] + ["--shard"]
+    res, _, launches = _cli(argv + ["--out", os.path.join(tmp, "b-shard")])
+    _expect_launches("batch --shard", launches, 4 * BATCH_FRAMES, 0)
+    for b in range(BATCH):
+        with open(os.path.join(tmp, "b-shard", f"seq{b:02d}.txt"), "rb") as x, \
+                open(os.path.join(tmp, "b-lidar", f"seq{b:02d}.txt"),
+                     "rb") as y:
+            if x.read() != y.read():
+                raise AssertionError(f"--shard: sequence {b} differs from "
+                                     "the unsharded run")
+    if not res["sharded"]:
+        raise AssertionError(f"--shard: result line {res}")
+    print(f"batch --shard on {torch.cuda.device_count()} card: every pose "
+          "file byte-equal to the unsharded run", flush=True)
+    out["shard"] = {"launches": launches, "equal_to_unsharded": True}
+    return out, inputs
+
+
+def batch_dist_topk(dev) -> list:
+    """``dist_topk`` under vmap at the path shapes, B = 4 and 8: one launch
+    per batched call, each sequence bitwise equal to its unbatched launch
+    and to the plain version, also with targets shared at batch stride 0;
+    wrapper, kernel alone, plain, library and bound per batched call."""
+    from velo_tpu_torch.kernels import dist_topk as dtk
+    from velo_tpu_torch.kernels._timing import graph_ms, median_ms
+
+    rng = np.random.default_rng(SEED + 1)
+    rows = []
+    for b in (4, 8):
+        for q, n, bf in PATH_SHAPES:
+            probs = [_dist_topk_problem(rng, q, n) for _ in range(b)]
+            T, M, Q = (torch.as_tensor(np.stack(x), device=dev)
+                       for x in zip(*probs))
+
+            def vmapped(targets_shared=False):
+                if targets_shared:
+                    return torch.func.vmap(lambda qq: dtk.dist_topk(
+                        T[0], M[0], qq, K, bf))(Q)
+                return torch.func.vmap(lambda t, m, qq: dtk.dist_topk(
+                    t, m, qq, K, bf))(T, M, Q)
+
+            for shared in (False, True):
+                before = dtk.dist_topk.launches
+                d2, idx = vmapped(shared)
+                if dtk.dist_topk.launches != before + 1:
+                    raise AssertionError("a vmapped dist_topk call is not "
+                                         "one launch")
+                for s in range(b):
+                    j = 0 if shared else s
+                    one = dtk.dist_topk(T[j], M[j], Q[s], K, bf)
+                    ref = dtk.dist_topk_reference(T[j], M[j], Q[s], K, bf)
+                    if not all(torch.equal(x, y) for x, y in zip(
+                            (d2[s], idx[s], d2[s], idx[s]), one + ref)):
+                        raise AssertionError(
+                            f"batched dist_topk B={b} {(q, n, bf)} sequence "
+                            f"{s} (shared targets: {shared}) != unbatched "
+                            "or plain")
+            ms = median_ms(vmapped)
+            kernel_ms = graph_ms(lambda: dtk._launch(T, M, Q, K, bf))
+            plain_ms = median_ms(lambda: torch.func.vmap(
+                lambda t, m, qq: dtk.dist_topk_reference(t, m, qq, K, bf))(
+                    T, M, Q), bursts=5, calls=2)
+            library_ms = median_ms(lambda: torch.topk(
+                torch.cdist(Q, T), K, dim=2, largest=False))
+            bound_ms, bound_by = _bound_ms(
+                b * (n * 13 + q * 12 + q * K * 8),
+                b * q * n * DIST_TOPK_OPS_PER_PAIR)
+            g = dtk.launch_geometry(q, n, bf, K, b)
+            rows.append({"path": "batch", "batch": b, "q": q, "n": n,
+                         "bin_factor": bf, "query_tile": g.tq,
+                         "blocks": g.blocks * b, "ms": ms,
+                         "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by})
+            print(f"dist_topk batch B={b} Q={q} N={n} B_fold={bf} (query "
+                  f"tile {g.tq}, {g.blocks} x {b} blocks): one launch, "
+                  f"bitwise equal to unbatched and plain (batched and "
+                  f"shared targets); wrapper {ms:.4f} ms, kernel alone "
+                  f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"topk(cdist) {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                  f"({bound_by})", flush=True)
+            del T, M, Q
+    torch.cuda.empty_cache()
+    return rows
+
+
+def batch_klt_l0(dev, bi) -> list:
+    """``klt_l0`` under vmap on the batch mode's images (128 x 384, 128
+    corners of each sequence's frame 0 tracked into frame 1, 8 iterations,
+    and back, 4), B = 4 and 8 (the four sequences twice): one launch, each
+    sequence bitwise equal to its unbatched launch and to the plain
+    version, also with images shared at batch stride 0."""
+    from velo_tpu_torch.kernels import klt_l0 as kl
+    from velo_tpu_torch.kernels._timing import graph_ms, median_ms
+    from velo_tpu_torch.vision import corners
+
+    vc = bi.cfg.vision
+    im = torch.as_tensor(bi.images[:, :2], device=dev)  # (4, 2, H, W)
+    uv0 = torch.stack([corners.detect(im[s, 0], vc).uv for s in
+                       range(BATCH)]).contiguous()
+    rows = []
+    for b in (4, 8):
+        sel = [s % BATCH for s in range(b)]
+        I0, I1, U0 = im[sel, 0], im[sel, 1], uv0[sel]
+        fwd = torch.func.vmap(lambda a, c, u: kl.track_level0_reference(
+            a, c, u, u, vc, vc.klt_iters)[0])(I0, I1, U0)
+        for name, (A, C, UP, UC, iters) in {
+                "forward": (I0, I1, U0, U0, vc.klt_iters),
+                "backward": (I1, I0, fwd, U0, vc.klt_iters_fb)}.items():
+            def vmapped(shared=False):
+                if shared:
+                    return torch.func.vmap(lambda up, uc: kl.track_level0(
+                        A[0], C[0], up, uc, vc, iters))(UP, UC)
+                return torch.func.vmap(lambda *x: kl.track_level0(
+                    *x, vc, iters))(A, C, UP, UC)
+
+            for shared in (False, True):
+                before = kl.track_level0.launches
+                uv, ok = vmapped(shared)
+                if kl.track_level0.launches != before + 1:
+                    raise AssertionError("a vmapped klt_l0 call is not one "
+                                         "launch")
+                for s in range(b):
+                    j = 0 if shared else s
+                    args = (A[j], C[j], UP[s], UC[s], vc, iters)
+                    one, ref = kl.track_level0(*args), \
+                        kl.track_level0_reference(*args)
+                    if not all(torch.equal(x, y) for x, y in zip(
+                            (uv[s], ok[s], uv[s], ok[s]), one + ref)):
+                        raise AssertionError(
+                            f"batched klt_l0 {name} B={b} sequence {s} "
+                            f"(shared images: {shared}) != unbatched or "
+                            "plain")
+            ms = median_ms(vmapped)
+            kernel_ms = graph_ms(lambda: kl._launch(A, C, UP, UC, iters))
+            plain_ms = median_ms(lambda: torch.func.vmap(
+                lambda *x: kl.track_level0_reference(*x, vc, iters))(
+                    A, C, UP, UC), bursts=5, calls=2)
+            work = [kl.work(A[s], C[s], UP[s], UC[s], vc, iters)
+                    for s in range(b)]
+            n_tmpl, n_steps, n_px = (sum(w[i] for w in work)
+                                     for i in range(3))
+            bound_ms, bound_by = _bound_ms(
+                n_px * 4 + b * (2 * BATCH_K * 8 + BATCH_K * 9),
+                n_tmpl * KLT_TEMPLATE_OPS + n_steps * KLT_STEP_OPS)
+            rows.append({"path": "batch", "batch": b, "call": name,
+                         "h": BATCH_H, "w": BATCH_W, "k": BATCH_K,
+                         "iters": iters, "ms": ms,
+                         "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "templates": n_tmpl, "steps": n_steps,
+                         "ok": int(ok.sum())})
+            print(f"klt_l0 batch B={b} {name} {BATCH_H}x{BATCH_W} K="
+                  f"{BATCH_K} iters={iters}: one launch, bitwise equal to "
+                  f"unbatched and plain (batched and shared images); "
+                  f"wrapper {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+                  f"({bound_by}); {int(ok.sum())} ok", flush=True)
+    return rows
+
+
+def _step_through(step, carry, frames):
+    """Run ``step`` over ``frames`` (tensors on the card) -> (host seconds
+    of each step call, the carry entering each frame).  A call's host time
+    is its enqueue time: the loop never waits for the card."""
+    host, carries = [], []
+    torch.cuda.synchronize()
+    for fr in frames:
+        carries.append(carry)
+        h0 = time.perf_counter()
+        carry, _ = step(carry, *fr)
+        host.append(time.perf_counter() - h0)
+    torch.cuda.synchronize()
+    return host, carries
+
+
+def _profile_steps(step, carry, frames) -> dict:
+    """torch.profiler over ``frames`` from ``carry``: wall time, summed
+    card kernel time, kernel count, busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for fr in frames:
+            carry, _ = step(carry, *fr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n, _ = _device_time(prof)
+    return {"frames": len(frames), "wall_s": wall, "device_s": busy,
+            "kernels": n, "busy_share": busy / wall}
+
+
+def batch_throughput(dev, bi, smi) -> dict:
+    """Aggregate frames/s of ``run_sequences`` at B = 1, 2, 4, 8 on the
+    fused inputs (8: the four sequences twice), warm; then, stepping by
+    hand through ``batched_step`` at B = 1 and 8 and through the plain
+    ``odometry.step`` (one sequence), the host's time per step call, and
+    for the batched steps a profile of the last frame: busy share and card
+    kernels."""
+    from velo_tpu_torch.pipeline import batch, odometry
+
+    cfg = bi.cfg
+    rows = {}
+    for b in BATCH_SIZES:
+        sel = [s % BATCH for s in range(b)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch.run_sequences(bi.scans[sel], bi.masks[sel], cfg,
+                            images=bi.images[sel], cam=bi.cam,
+                            device=dev)
+        wall = time.perf_counter() - t0
+        rows[b] = {"batch": b, "agg_fps": b * BATCH_FRAMES / wall,
+                   "wall_ms_per_step": 1e3 * wall / BATCH_FRAMES}
+        print(f"batch throughput B={b}: {rows[b]['agg_fps']:.3f} frames/s "
+              f"in all, {rows[b]['wall_ms_per_step']:.1f} ms per batched "
+              f"step, on {smi}", flush=True)
+
+    def put(x, sel):
+        return torch.as_tensor(np.ascontiguousarray(x[sel])).to(dev)
+
+    def measure(name, step, carry, frames, profiled=True):
+        """Host time of each step call; then a profile of the last step
+        again, from the carry entering it (the profiler's own costs stay
+        out of the host times)."""
+        host, carries = _step_through(step, carry, frames)
+        prof = (_profile_steps(step, carries[-1], frames[-1:]) if profiled
+                else None)
+        print(f"{name}: host {[round(1e3 * h, 1) for h in host]} ms per "
+              f"step call (frames 0-{len(frames) - 1}); profile of the last "
+              f"frame: {prof}", flush=True)
+        return {"host_ms_per_step": [1e3 * h for h in host],
+                "profile": prof}
+
+    for b in (1, 8):
+        sel = [s % BATCH for s in range(b)]
+        frames = [(put(bi.scans[:, f], sel), put(bi.masks[:, f], sel))
+                  + ((put(bi.images[:, f], sel),) if cfg.use_vision else ())
+                  for f in range(BATCH_FRAMES)]
+        rows[b].update(measure(
+            f"batch B={b} stepped", batch.batched_step(cfg, bi.cam),
+            batch.broadcast_carry(odometry.init_carry(cfg, dev), b), frames))
+    frames = [tuple(torch.as_tensor(np.ascontiguousarray(x)).to(dev)
+                    for x in fr) for fr in _sequence_frames(bi, 0)]
+
+    def plain_step(carry, scan, mask, image=None):
+        return odometry.step(carry, scan, mask, cfg, image=image, cam=bi.cam)
+
+    rows["unvmapped"] = {"batch": 1, **measure(
+        "unvmapped step, one sequence", plain_step,
+        odometry.init_carry(cfg, dev), frames, profiled=False)}
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = card_check()
     dev = torch.device("cuda", 0)
-    build()
     memoize_fixtures()
-    fx, grids = make_frames()
-    dk = dist_topk_check(dev)
-    kk = klt_l0_check(dev, fx)
-    runs = {mode: pipeline_run(dev, mode, fx, grids)
-            for mode in ("fused", "fused-gather", "lidar")}
-    for mode, run in runs.items():
-        print(f"{mode} 64x2048 warm pass: {run['fps']:.3f} frames/s on "
-              f"{smi}", flush=True)
-    del fx, grids
-    with tempfile.TemporaryDirectory() as tmp:
-        root = export_phase(tmp)
-        runs["cli-kitti"] = cli_kitti(dev, tmp, root, smi)
-        runs["cli-variants"] = cli_variants(tmp)
+    # The batch phase's drives simulate meanwhile, on other cores.
+    sims = start_prefetch(batch_fixture_kws())
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
+        return out
+
+    try:
+        phase("build", build)
+        fx, grids = phase("fixture", make_frames)
+        dk = phase("dist_topk", dist_topk_check, dev)
+        kk = phase("klt_l0", klt_l0_check, dev, fx)
+        runs = {mode: phase(mode, pipeline_run, dev, mode, fx, grids)
+                for mode in ("fused", "fused-gather", "lidar")}
+        for mode, run in runs.items():
+            print(f"{mode} 64x2048 warm pass: {run['fps']:.3f} frames/s on "
+                  f"{smi}", flush=True)
+        del fx, grids
+        with tempfile.TemporaryDirectory() as tmp:
+            root = phase("export", export_phase, tmp)
+            runs["cli-kitti"] = phase("cli-kitti", cli_kitti, dev, tmp, root,
+                                      smi)
+            runs["cli-variants"] = phase("cli-variants", cli_variants, tmp)
+            phase("batch fixtures", finish_prefetch, sims)
+            runs["batch"], inputs = phase("batch", batch_cli, dev, tmp, smi)
+        dk["per_shape"] += phase("batch dist_topk", batch_dist_topk, dev)
+        kk["per_shape"] += phase("batch klt_l0", batch_klt_l0, dev,
+                                 inputs["fused"])
+        runs["batch-throughput"] = phase(
+            "batch throughput", batch_throughput, dev, inputs["fused"], smi)
+    finally:
+        sims[0].shutdown(cancel_futures=True)
 
     def entry(name, source, replaces, check, library_ms, **extra):
-        # One frame's calls of the forward path; the smoother's shapes
-        # stand in "per_shape" only.
+        # One frame's calls of the forward path; the smoother's and the
+        # batch's shapes stand in "per_shape" only.
         shapes = [s for s in check["per_shape"]
                   if s.get("path", "forward") == "forward"]
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # This slice's path: the command line's KITTI run.
-            "launches": runs["cli-kitti"]["launches"][name],
+            # This slice's path: the command line's --batch 4, fused.
+            "launches": runs["batch"]["fused"]["launches"][name],
             "launches_by_path": {
+                "batch": runs["batch"]["fused"]["launches"][name],
+                "batch-lidar": runs["batch"]["lidar"]["launches"][name],
+                "batch-shard": runs["batch"]["shard"]["launches"][name],
                 "fused": runs["fused"]["launches"][name],
                 "lidar": runs["lidar"]["launches"][name],
                 "cli-kitti": runs["cli-kitti"]["launches"][name],
@@ -916,14 +1402,13 @@ def main() -> int:
               library_call="none: no single PyTorch call computes "
                            "inverse-compositional Lucas-Kanade"),
     ]
-    print(json.dumps({"pipeline": runs,
+    print(json.dumps({"pipeline": runs, "phase_seconds": seconds,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -96,8 +96,12 @@ def test_checkpoint_and_resume(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--batch", "2"], "item 10"),
-    (["--batch", "2", "--shard"], "item 10"),
+    # The batch mode (ROADMAP item 10, ported) refuses what single-sequence
+    # mode refuses, before it simulates anything.
+    pytest.param(["--batch", "2", "--set", "s:ct_sweep=1"], "item 12",
+                 id="flags0-item 10"),
+    pytest.param(["--batch", "2", "--shard", "--set", "s:nn_engine=hash"],
+                 "item 12", id="flags1-item 10"),
     (["--plot"], "item 13"),
 ])
 def test_flags_not_ported_fail_loudly(tmp_path, flags, item):

@@ -246,6 +246,46 @@ def test_kernel_takes_strided_inputs_on_card():
         assert torch.equal(x, y)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,bf", FULL_PATH)
+@pytest.mark.parametrize("shared", [False, True], ids=["batched", "shared"])
+def test_vmapped_kernel_is_one_batched_launch_on_card(q, n, bf, shared,
+                                                      monkeypatch):
+    """Under torch.func.vmap (four sequences, targets batched or shared at
+    batch stride 0) a call is one launch, each sequence's result is the
+    unbatched launch's and the plain version's to the bit, and the plain
+    version is never reached on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from velo_tpu_torch.kernels import dist_topk as dtk
+
+    dev = torch.device("cuda")
+    probs = [_problem(n + b, q, n) for b in range(4)]
+    t, tm, qs = (torch.tensor(np.stack(x), device=dev) for x in zip(*probs))
+
+    def plain_reached(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    before = dist_topk.launches
+    with monkeypatch.context() as m:
+        m.setattr(dtk, "dist_topk_reference", plain_reached)
+        if shared:
+            d2, idx = torch.func.vmap(
+                lambda x: dist_topk(t[0], tm[0], x, 16, bf))(qs)
+        else:
+            d2, idx = torch.func.vmap(
+                lambda a, b, c: dist_topk(a, b, c, 16, bf))(t, tm, qs)
+        torch.cuda.synchronize()
+    assert dist_topk.launches == before + 1
+    assert d2.shape == idx.shape == (4, q, 16)
+    for b in range(4):
+        j = 0 if shared else b
+        one = dist_topk(t[j], tm[j], qs[b], k=16, bin_factor=bf)
+        ref = dist_topk_reference(t[j], tm[j], qs[b], k=16, bin_factor=bf)
+        assert torch.equal(d2[b], one[0]) and torch.equal(idx[b], one[1])
+        assert torch.equal(d2[b], ref[0]) and torch.equal(idx[b], ref[1])
+
+
 # The H100: 132 SMs, 232,448 bytes of shared memory for one block.
 SMS, MAX_SMEM = 132, 232448
 

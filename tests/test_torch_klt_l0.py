@@ -257,3 +257,45 @@ def test_kernel_bitwise_equals_plain_on_card_edge_tracks(iters):
     assert torch.equal(ok, rok)
     assert torch.equal(uv, ruv)
     assert 4 <= int(ok.sum()) <= 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [8, 4])
+@pytest.mark.parametrize("shared", [False, True], ids=["batched", "shared"])
+def test_vmapped_kernel_is_one_batched_launch_on_card(iters, shared,
+                                                      monkeypatch):
+    """The batch mode's shapes (128 x 384, K = 128) for four sequences
+    under torch.func.vmap, images batched or shared at batch stride 0: one
+    launch, each sequence bitwise equal to its unbatched launch and to the
+    plain version, and the plain version never reached on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    sets = [_setup(30 + b, H=128, W=384, K=128) for b in range(4)]
+    prev, cur, up, uc = (torch.tensor(np.stack(x), device=dev)
+                         for x in zip(*sets))
+    cfg = dataclasses.replace(
+        tconfig.VisionConfig(height=128, width=384), klt_impl="pallas")
+
+    def plain_reached(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    before = tk.track_level0.launches
+    with monkeypatch.context() as m:
+        m.setattr(tk, "_plain", plain_reached)
+        if shared:
+            uv, ok = torch.func.vmap(lambda a, b: tk.track_level0(
+                prev[0], cur[0], a, b, cfg, iters))(up, uc)
+        else:
+            uv, ok = torch.func.vmap(lambda *x: tk.track_level0(
+                *x, cfg, iters))(prev, cur, up, uc)
+        torch.cuda.synchronize()
+    assert tk.track_level0.launches == before + 1
+    assert uv.shape == (4, 128, 2) and ok.shape == (4, 128)
+    for b in range(4):
+        j = 0 if shared else b
+        args = (prev[j], cur[j], up[b], uc[b], cfg, iters)
+        one, ref = tk.track_level0(*args), tk.track_level0_reference(*args)
+        assert torch.equal(uv[b], one[0]) and torch.equal(ok[b], one[1])
+        assert torch.equal(uv[b], ref[0]) and torch.equal(ok[b], ref[1])
+    assert int(ok.sum()) > 300

@@ -1,8 +1,9 @@
 """The command line: run odometry, write KITTI poses, evaluate
-(port of ``velo_tpu/cli.py``, single-sequence mode).
+(port of ``velo_tpu/cli.py``).
 
   velo-tpu-torch --synthetic --frames 20 --out out/           # simulated drive
   velo-tpu-torch --kitti-root /data/kitti --seq 00 --out out/ # KITTI sequence
+  velo-tpu-torch --synthetic --batch 8 --out out/  # 8 drives, one program
 
 Writes ``<out>/<seq>.txt`` in KITTI 3x4 row-major format and, when ground
 truth is available, prints the official drift metric.  Runs on the card
@@ -17,16 +18,13 @@ import json
 import os
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
 # Flags the parser accepts, as the reference's does, but whose modules are
 # not ported yet: each ends in an error that names its ROADMAP item.
 _NOT_PORTED = {
-    "batch": "--batch (pipeline/batch.py, a batch axis through the modules "
-             "and both kernels' grids): ROADMAP.md Queue 1 item 10",
-    "shard": "--shard (sharding of the --batch dimension): ROADMAP.md "
-             "Queue 1 item 10",
     "plot": "--plot (evaluation/plots.py, matplotlib): ROADMAP.md Queue 1 "
             "item 13",
 }
@@ -79,10 +77,9 @@ def build_parser():
     p.add_argument("--smooth-passes", type=int, default=2)
     p.add_argument("--batch", type=int, default=0,
                    help="config 5: run N synthetic sequences as one batched "
-                        "program (not ported yet)")
+                        "program (torch.func.vmap over the step)")
     p.add_argument("--shard", action="store_true",
-                   help="shard the --batch dimension over all local devices "
-                        "(not ported yet)")
+                   help="shard the --batch dimension over all local cards")
     p.add_argument("--set", dest="set_spec", default=None, metavar="SPEC",
                    help="config field overrides, shared syntax: "
                         "\"s:lm_iters=4,v:klt_iters_fb=2\" (s=solver, "
@@ -107,11 +104,126 @@ def _apply_cli_overrides(cfg, args):
     return cfg
 
 
+class BatchInputs(NamedTuple):
+    """What ``--batch`` runs: B simulated drives at the batch mode's
+    configuration, stacked along a leading batch axis."""
+    cfg: object  # VeloConfig
+    scans: np.ndarray  # (B, F, R, W, 5) grids, or (B, F, N_MAX, 4) raw
+    masks: np.ndarray  # (B, F, R, W) or (B, F, N_MAX)
+    images: np.ndarray | None  # (B, F, H, W) float32 with vision
+    cam: object  # the shared Camera with vision, else None
+    gts: list  # per sequence, (F, 4, 4) ground truth in the cam0 frame
+    tcvs: list  # per sequence, T_cam_velo
+
+
+def batch_inputs(args, device) -> BatchInputs:
+    """Simulate the ``--batch`` sequences: seeds 100 + b, the reference's
+    configuration (``rings or 32`` x ``azimuth or 1024``, 128 x 384
+    images, 128 tracks in 24 grid columns)."""
+    from velo_tpu_torch.config import LidarConfig, VeloConfig, VisionConfig
+    from velo_tpu_torch.geom import camera as cam_mod
+    from velo_tpu_torch.io import fixtures, kitti
+    from velo_tpu_torch.lidar import rangeimage as ri_mod
+    from velo_tpu_torch.pipeline import odometry
+
+    use_vision = not args.no_vision
+    rings = args.rings or 32
+    az = args.azimuth or 1024
+    h, w = 128, 384
+    cfg = VeloConfig(
+        lidar=LidarConfig(n_rings=rings, n_azimuth=az),
+        vision=VisionConfig(height=h, width=w, k_tracks=128, grid_cols=24),
+        use_vision=use_vision,
+        use_map=not args.no_map,
+        use_deskew=not args.no_deskew,
+        n_max_points=rings * az,
+        # Same production default as single-sequence mode: frames arrive as
+        # host-pre-binned (R, W, 5) grids (the bench/loader layout).
+        prebin_host=not args.no_prebin,
+    )
+    cfg = _apply_cli_overrides(cfg, args)
+    odometry.check_slice(cfg)
+    print(f"simulating {args.batch} sequences x {args.frames} frames…",
+          file=sys.stderr)
+
+    def _lidar_frame(s):
+        if cfg.prebin_host:
+            return ri_mod.bin_scan_host(s, cfg.lidar)
+        return kitti.pad_scan(s, cfg.n_max_points)
+
+    scans, masks, gts, tcvs, images = [], [], [], [], []
+    cam = None
+    for b in range(args.batch):
+        fx = fixtures.make_fixture(n_frames=args.frames, n_rings=rings,
+                                   n_azimuth=az, with_images=use_vision,
+                                   height=h, width=w, seed=100 + b)
+        padded = [_lidar_frame(s) for s in fx.scans]
+        scans.append(np.stack([p[0] for p in padded]))
+        masks.append(np.stack([p[1] for p in padded]))
+        gts.append(fx.gt_poses_cam)
+        tcvs.append(fx.T_cam_velo)
+        if use_vision:
+            images.append(fx.images)
+            if cam is None:  # shared calibration across synthetic sequences
+                cam = cam_mod.from_numpy(fx.P, fx.T_cam_velo, w, h, device)
+    return BatchInputs(cfg, np.stack(scans), np.stack(masks),
+                       np.stack(images) if use_vision else None, cam, gts,
+                       tcvs)
+
+
+def run_batch_mode(args):
+    """Config 5 on the command line: N independent synthetic sequences,
+    one program.
+
+    Honors --no-vision like single-sequence mode: by default each sequence
+    runs the fused (config-4) pipeline with rendered images.
+    """
+    from velo_tpu_torch.evaluation import kitti_metric
+    from velo_tpu_torch.io import kitti
+    from velo_tpu_torch.pipeline import batch as batch_mod
+    from velo_tpu_torch.pipeline import odometry
+
+    device = odometry.resolve_device(args.device)
+    bi = batch_inputs(args, device)
+    t0 = time.perf_counter()
+    poses, diag = batch_mod.run_sequences(bi.scans, bi.masks, bi.cfg,
+                                          shard=args.shard, images=bi.images,
+                                          cam=bi.cam, device=device)
+    dt = time.perf_counter() - t0
+    os.makedirs(args.out, exist_ok=True)
+    rows = []
+    for b in range(args.batch):
+        cam_traj = odometry.velo_to_cam_trajectory(poses[b], bi.tcvs[b])
+        kitti.write_poses(os.path.join(args.out, f"seq{b:02d}.txt"),
+                          cam_traj)
+        ate = kitti_metric.ate_rmse(cam_traj, bi.gts[b])
+        errs = kitti_metric.evaluate_trajectory(cam_traj, bi.gts[b])
+        rows.append({
+            "seq": b, "ate_rmse_m": round(float(ate), 4),
+            # Both halves of the north-star metric: trans %/100m AND rot
+            # deg/100m.
+            "t_err_pct": (round(float(errs.t_err_pct), 3)
+                          if errs.n_segments else None),
+            "r_err_deg_per_100m": (round(float(errs.r_err_deg_per_100m), 4)
+                                   if errs.n_segments else None),
+        })
+    total_fps = args.batch * args.frames / dt
+    result = {"batch": args.batch, "frames": args.frames,
+              "agg_fps": round(total_fps, 2),
+              "sharded": bool(args.shard), "prebin": bi.cfg.prebin_host,
+              "sequences": rows}
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(item)
+
+    if args.batch:
+        return run_batch_mode(args)
 
     from velo_tpu_torch.config import LidarConfig, VeloConfig, VisionConfig
     from velo_tpu_torch.evaluation import kitti_metric

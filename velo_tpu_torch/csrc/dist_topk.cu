@@ -1,4 +1,5 @@
-// Fused distance + binned top-k for Hopper (sm_90a): one launch per call.
+// Fused distance + binned top-k for Hopper (sm_90a): one launch per call,
+// for one sequence or a batch of them.
 //
 // Replaces the Pallas TPU kernel velo_tpu/pallas/dist_topk.py:_kernel
 // (called through dist_topk there).  Contract, shared with the plain
@@ -79,6 +80,13 @@
 //    each winning bin's first-minimum element, 8 loads in flight per lane,
 //    and write d2 and idx, so the k rounds do not wait on L2.
 //
+//  * A batch of sequences (torch.func.vmap over the odometry step, the
+//    counterpart of jax.vmap extending the Pallas grid) is one launch: the
+//    grid's y axis is the sequence, x the query tile, and every input has
+//    a batch stride, 0 for an input that all sequences share.  A block
+//    reads only its own sequence, so each sequence's (d2, idx) is the
+//    unbatched call's to the bit; an unbatched call is a batch of 1.
+//
 // Inputs must be finite.  Build: see velo_tpu_torch/kernels/_build.py.
 
 #include <cuda_runtime.h>
@@ -102,9 +110,9 @@ constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kClockBlocks = 1024;
 constexpr int kClockPhases = 5;
 __device__ long long g_phase_clocks[kClockBlocks][kClockPhases];
-#define PHASE_CLOCK(i)                                   \
-  if (threadIdx.x == 0 && blockIdx.x < kClockBlocks) {   \
-    g_phase_clocks[blockIdx.x][i] = clock64();           \
+#define PHASE_CLOCK(i)                                                   \
+  if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.x < kClockBlocks) { \
+    g_phase_clocks[blockIdx.x][i] = clock64();                           \
   }
 #else
 #define PHASE_CLOCK(i)
@@ -115,10 +123,24 @@ struct Args {
   const unsigned char* mask;  // element j at mask[j * ms0]
   const float* q;            // queries, element (i, c) at q[i * qs0 + c * qs1]
   long long ts0, ts1, ms0, qs0, qs1;
+  long long tsb, msb, qsb;  // batch strides of t, mask and q (0: shared)
   int nq, n, tn, nbt, k;
-  float* out_d2;  // (nq, k)
-  int* out_idx;   // (nq, k)
+  float* out_d2;  // (batch, nq, k)
+  int* out_idx;   // (batch, nq, k)
 };
+
+// The arguments of sequence b of the batch: its inputs at the batch
+// strides, its rows of the packed outputs.
+__device__ __forceinline__ Args sequence(const Args& batch, int b) {
+  Args a = batch;
+  a.t += b * batch.tsb;
+  a.mask += b * batch.msb;
+  a.q += b * batch.qsb;
+  const long long o = static_cast<long long>(b) * batch.nq * batch.k;
+  a.out_d2 += o;
+  a.out_idx += o;
+  return a;
+}
 
 // a.a as the plain version sums it: a0*a0 in float32, then two multiply-adds
 // in float64, each rounded to float32.
@@ -197,8 +219,9 @@ __device__ __forceinline__ int slot(int b, int cs) {
 }
 
 template <int TQ>
-__global__ void __launch_bounds__(kThreads) dist_topk_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads) dist_topk_kernel(const Args batch) {
   extern __shared__ float bins[];  // [TQ][32 columns][cs] minima
+  const Args a = sequence(batch, blockIdx.y);
   const int fold = a.tn / a.nbt;
   const int nb = (a.n / a.tn) * a.nbt;
   const int cs = ((nb + 31) >> 5) | 1;
@@ -387,33 +410,40 @@ __global__ void __launch_bounds__(kThreads) dist_topk_kernel(const Args a) {
 }
 
 template <int TQ>
-int launch(const Args& a, int blocks, int smem_bytes, cudaStream_t stream) {
+int launch(const Args& a, int batch, int blocks, int smem_bytes,
+           cudaStream_t stream) {
   if (smem_bytes > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         dist_topk_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dist_topk_kernel<TQ><<<blocks, kThreads, smem_bytes, stream>>>(a);
+  dist_topk_kernel<TQ><<<dim3(blocks, batch), kThreads, smem_bytes, stream>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// targets (n, 3) f32 with element strides (ts0, ts1), mask (n,) bool with
-// stride ms0, queries (nq, 3) f32 with strides (qs0, qs1); out_d2 (nq, k)
-// f32 and out_idx (nq, k) i32 contiguous; all on the current device; stream
-// is a cudaStream_t.  The geometry (tn, nbt, tq, threads, blocks,
-// smem_bytes) is computed by the Python wrapper and only checked here.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int dist_topk_launch(const void* targets, long long ts0,
-                                long long ts1, const void* mask,
+// A batch of `batch` sequences: targets (batch, n, 3) f32 with element
+// strides (tsb, ts0, ts1), mask (batch, n) bool with strides (msb, ms0),
+// queries (batch, nq, 3) f32 with strides (qsb, qs0, qs1), a batch stride of
+// 0 for an input that all sequences share; out_d2 (batch, nq, k) f32 and
+// out_idx (batch, nq, k) i32 contiguous; all on the current device; stream
+// is a cudaStream_t.  The geometry (tn, nbt, tq, threads, blocks per
+// sequence, smem_bytes) is computed by the Python wrapper and only checked
+// here.  Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int dist_topk_launch(const void* targets, long long tsb,
+                                long long ts0, long long ts1,
+                                const void* mask, long long msb,
                                 long long ms0, const void* queries,
-                                long long qs0, long long qs1, int nq, int n,
-                                int tn, int nbt, int k, int tq, int threads,
-                                int blocks, int smem_bytes, void* out_d2,
-                                void* out_idx, void* stream) {
-  if (nq <= 0 || n <= 0 || tn <= 0 || nbt <= 0 || n % tn != 0 ||
+                                long long qsb, long long qs0, long long qs1,
+                                int batch, int nq, int n, int tn, int nbt,
+                                int k, int tq, int threads, int blocks,
+                                int smem_bytes, void* out_d2, void* out_idx,
+                                void* stream) {
+  if (batch <= 0 || batch > 65535 || nq <= 0 || n <= 0 || tn <= 0 ||
+      nbt <= 0 || n % tn != 0 ||
       tn % nbt != 0 || k <= 0 || k > (n / tn) * nbt || tq <= 0 ||
       threads != kThreads || tq * 32 > threads ||
       blocks != (nq + tq - 1) / tq ||
@@ -431,6 +461,9 @@ extern "C" int dist_topk_launch(const void* targets, long long ts0,
   a.ms0 = ms0;
   a.qs0 = qs0;
   a.qs1 = qs1;
+  a.tsb = tsb;
+  a.msb = msb;
+  a.qsb = qsb;
   a.nq = nq;
   a.n = n;
   a.tn = tn;
@@ -440,10 +473,10 @@ extern "C" int dist_topk_launch(const void* targets, long long ts0,
   a.out_idx = static_cast<int*>(out_idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tq) {
-    case 8: return launch<8>(a, blocks, smem_bytes, s);
-    case 4: return launch<4>(a, blocks, smem_bytes, s);
-    case 2: return launch<2>(a, blocks, smem_bytes, s);
-    case 1: return launch<1>(a, blocks, smem_bytes, s);
+    case 8: return launch<8>(a, batch, blocks, smem_bytes, s);
+    case 4: return launch<4>(a, batch, blocks, smem_bytes, s);
+    case 2: return launch<2>(a, batch, blocks, smem_bytes, s);
+    case 1: return launch<1>(a, batch, blocks, smem_bytes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

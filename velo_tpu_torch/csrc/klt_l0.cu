@@ -52,6 +52,13 @@
 //    and gyy of the template.
 //  * One warp per block: K = 256 tracks are 256 blocks, two per SM, and a
 //    track that fails its template test exits before any step.
+//  * A batch of sequences (torch.func.vmap over the odometry step, the
+//    counterpart of jax.vmap extending the Pallas grid) is one launch: the
+//    grid is (K / warps per block, batch), blockIdx.y the sequence, and
+//    the images and positions take a batch stride (0: shared by all
+//    sequences).  A block reads only its own sequence, so each sequence's
+//    result is the unbatched call's to the bit; an unbatched call is a
+//    batch of 1.
 //
 // Build: see velo_tpu_torch/kernels/_build.py.
 
@@ -167,11 +174,12 @@ __device__ __forceinline__ float rows_total(float row) {
 }
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    klt_l0_kernel(const float* __restrict__ prev,
-                  const float* __restrict__ cur, int H, int W,
-                  const float* __restrict__ uv_prev,
-                  const float* __restrict__ uv_cur, int K, int iters,
-                  float* __restrict__ uv_out, bool* __restrict__ ok_out) {
+    klt_l0_kernel(const float* __restrict__ prev, long long prev_bs,
+                  const float* __restrict__ cur, long long cur_bs, int H,
+                  int W, const float* __restrict__ uv_prev, long long uvp_bs,
+                  const float* __restrict__ uv_cur, long long uvc_bs, int K,
+                  int iters, float* __restrict__ uv_out,
+                  bool* __restrict__ ok_out) {
   __shared__ float s_win[kWarpsPerBlock][kWinS * kWinS];
   __shared__ float s_gx[kWarpsPerBlock][16 * kPatS];
   __shared__ float s_gy[kWarpsPerBlock][16 * kPatS];
@@ -179,6 +187,14 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   const int lane = threadIdx.x & 31;
   const int k = blockIdx.x * kWarpsPerBlock + warp;
   if (k >= K) return;  // whole warps exit; no block-wide barrier follows
+  // Sequence blockIdx.y: its inputs at the batch strides, its outputs packed.
+  const long long b = blockIdx.y;
+  prev += b * prev_bs;
+  cur += b * cur_bs;
+  uv_prev += b * uvp_bs;
+  uv_cur += b * uvc_bs;
+  uv_out += b * 2 * K;
+  ok_out += b * K;
   const int i = min(lane & 15, kS - 1);  // this lane's patch row
   const bool upper = (lane & 16) != 0;   // lanes 16-31: the gy half
   float* win = s_win[warp];
@@ -326,22 +342,29 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 
 }  // namespace
 
-// prev, cur (H, W) f32; uv_prev, uv_cur, uv_out (K, 2) f32; ok_out (K,)
-// bool; all contiguous on the current device; stream is a cudaStream_t.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int klt_l0_launch(const void* prev, const void* cur, int H, int W,
-                             const void* uv_prev, const void* uv_cur, int K,
-                             int iters, void* uv_out, void* ok_out,
+// A batch of `batch` sequences: prev, cur (batch, H, W) f32 and uv_prev,
+// uv_cur (batch, K, 2) f32, each sequence's (H, W) or (K, 2) contiguous,
+// with batch strides in elements (0: shared by all sequences); uv_out
+// (batch, K, 2) f32 and ok_out (batch, K) bool contiguous; all on the
+// current device; stream is a cudaStream_t.  Returns cudaGetLastError()
+// after the launch (0 on success).
+extern "C" int klt_l0_launch(const void* prev, long long prev_bs,
+                             const void* cur, long long cur_bs, int H, int W,
+                             const void* uv_prev, long long uvp_bs,
+                             const void* uv_cur, long long uvc_bs, int K,
+                             int iters, int batch, void* uv_out, void* ok_out,
                              void* stream) {
-  if (K <= 0 || iters < 0 || W % 128 != 0 || W < kBW || H < kCBR ||
-      H % 8 != 0) {
+  if (batch <= 0 || batch > 65535 || K <= 0 || iters < 0 || W % 128 != 0 ||
+      W < kBW || H < kCBR || H % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int blocks = (K + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  klt_l0_kernel<<<blocks, kWarpsPerBlock * 32, 0,
+  klt_l0_kernel<<<dim3(blocks, batch), kWarpsPerBlock * 32, 0,
                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(prev), static_cast<const float*>(cur), H, W,
-      static_cast<const float*>(uv_prev), static_cast<const float*>(uv_cur),
-      K, iters, static_cast<float*>(uv_out), static_cast<bool*>(ok_out));
+      static_cast<const float*>(prev), prev_bs,
+      static_cast<const float*>(cur), cur_bs, H, W,
+      static_cast<const float*>(uv_prev), uvp_bs,
+      static_cast<const float*>(uv_cur), uvc_bs, K, iters,
+      static_cast<float*>(uv_out), static_cast<bool*>(ok_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,9 @@ The old sources must have the C interface of the first design (revision
 a471739): ``dist_topk_launch(q_aug, qp, m, n, tn, nbt, k, out_s, out_i,
 stream)`` on the (4, N) ``m`` and the padded ``q_aug`` that the plain
 version's ``_prepare`` makes, with ``_finish`` after it, and
-``klt_l0_launch`` as it is today.  Shapes and inputs are those of
+``klt_l0_launch(prev, cur, H, W, uv_prev, uv_cur, K, iters, uv_out,
+ok_out, stream)``, unbatched (revisions d8cb0d5 to fb6c505); this tree's
+kernels run as a batch of one.  Shapes and inputs are those of
 ``chip_smoke.py``'s kernel checks.  Old and new results must be bitwise
 equal.  Prints one JSON object.
 """
@@ -93,7 +95,8 @@ def compare_dist_topk(old_dir: Path, dev) -> list:
         old_w, new_w = _in_turns(lambda: old_wrapper(tt, tmt, qt, bf),
                                  lambda: dtk.dist_topk(tt, tmt, qt, K, bf))
         old_k, new_k = _in_turns(lambda: old_select(q_aug, m, tn, nbt),
-                                 lambda: dtk._launch(tt, tmt, qt, K, bf),
+                                 lambda: dtk._launch(tt[None], tmt[None],
+                                                     qt[None], K, bf),
                                  graph_ms)
         lib = median_ms(lambda: torch.topk(torch.cdist(qt, tt), K, dim=1,
                                            largest=False))
@@ -134,12 +137,13 @@ def compare_klt_l0(old_dir: Path, dev) -> list:
     for name, args in {"forward": (im0, im1, uv0, uv0, vc.klt_iters),
                        "backward": (im1, im0, fwd, uv0,
                                     vc.klt_iters_fb)}.items():
-        a, b = old_launch(*args), kl._launch(*args)
+        batch1 = [x[None] for x in args[:4]] + [args[4]]
+        a, b = old_launch(*args), kl._launch(*batch1)
         torch.cuda.synchronize()
-        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        if not (torch.equal(a[0], b[0][0]) and torch.equal(a[1], b[1][0])):
             raise AssertionError(f"klt_l0 {name}: old != new")
         old_k, new_k = _in_turns(lambda: old_launch(*args),
-                                 lambda: kl._launch(*args), graph_ms)
+                                 lambda: kl._launch(*batch1), graph_ms)
         rows.append({"call": name, "iters": args[4], "old_kernel_ms": old_k,
                      "new_kernel_ms": new_k, "ok": int(b[1].sum())})
         print("klt_l0", rows[-1], flush=True)

@@ -18,6 +18,12 @@ forms ``m``, |q|^2, the clamp and the indices itself, in the plain version's
 operation order and roundings, so the two agree bitwise.  The launch
 geometry is :func:`launch_geometry`, a pure function of the shapes.
 
+The card path is the custom operator ``velo_tpu_torch::dist_topk`` on a
+leading batch axis.  Under ``torch.func.vmap`` (the batched odometry step,
+``pipeline/batch.py``) its batching rule merges the vmapped axis into that
+one and launches once for all sequences, an input shared by all of them at
+batch stride 0; on the CPU ``vmap`` traces the plain version's operations.
+
 Masked targets and already-extracted bins both read exactly 1e30 (the f32
 sum absorbs |t|^2), so a query with fewer than k live bins gets duplicate
 indices in its trailing lanes — as in the reference.
@@ -56,7 +62,7 @@ class Geometry(NamedTuple):
     nb: int  # bins per query, n // bin_factor
     tq: int  # queries per block, held in each thread's registers
     threads: int  # per block; warp w extracts query w of the block
-    blocks: int  # ceil(q / tq)
+    blocks: int  # per sequence, ceil(q / tq): the grid's x; y is the batch
     smem_bytes: int  # the bins' minima: per query 32 columns of bins at
     # an odd stride, 4 * tq * 32 * (ceil(nb / 32) | 1)
 
@@ -70,13 +76,18 @@ def _tiles(n: int, k: int, bin_factor: int):
 
 
 @functools.lru_cache(maxsize=None)
-def launch_geometry(q: int, n: int, bin_factor: int, k: int) -> Geometry:
-    """The kernel's launch geometry for Q queries against N targets: the
-    largest register tile of queries that still gives every SM a block and
-    whose bins fit a block's shared memory.  Raises ValueError on shapes
-    the kernel does not take."""
+def launch_geometry(q: int, n: int, bin_factor: int, k: int,
+                    batch: int = 1) -> Geometry:
+    """The kernel's launch geometry for ``batch`` sequences of Q queries
+    against N targets: the largest register tile of queries that still
+    gives every SM a block (``batch * ceil(q / tq) >= 132``) and whose bins
+    fit a block's shared memory.  The kernel equals the plain version at
+    every tile, so the batch changes no result.  Raises ValueError on
+    shapes the kernel does not take."""
     if q < 1:
         raise ValueError(f"Q={q}: the kernel needs at least one query")
+    if not 1 <= batch <= 65535:
+        raise ValueError(f"batch={batch}: the grid's y axis takes 1-65535")
     tn, nbt = _tiles(n, k, bin_factor)
     nb = (n // tn) * nbt
     per_query = 4 * 32 * (-(-nb // 32) | 1)
@@ -84,11 +95,12 @@ def launch_geometry(q: int, n: int, bin_factor: int, k: int) -> Geometry:
     if not fits:
         raise ValueError(f"N={n}, bin_factor={bin_factor}: {nb} bins per "
                          f"query exceed {_MAX_SMEM} bytes of shared memory")
-    tq = next((t for t in fits if -(-q // t) >= _SMS), fits[-1])
+    tq = next((t for t in fits if batch * -(-q // t) >= _SMS), fits[-1])
     return Geometry(tn, nbt, nb, tq, _THREADS, -(-q // tq), tq * per_query)
 
 
 def _check(targets, tmask, queries):
+    """The per-sequence contract: (N, 3), (N,), (Q, 3)."""
     if targets.dtype != torch.float32 or queries.dtype != torch.float32:
         raise TypeError("targets and queries must be float32")
     if tmask.dtype != torch.bool:
@@ -161,30 +173,70 @@ def _kernel_fn():
 
         fn = _build.load("dist_topk").dist_topk_launch
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, ll, p, ll, p, ll, ll,
-                       i, i, i, i, i, i, i, i, i, p, p, p]
+        fn.argtypes = [p, ll, ll, ll, p, ll, ll, p, ll, ll, ll,
+                       i, i, i, i, i, i, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
 def _launch(targets, tmask, queries, k, bin_factor):
-    """One kernel launch on the raw inputs (any strides) -> (d2, idx)."""
-    q, n = queries.shape[0], targets.shape[0]
-    g = launch_geometry(q, n, bin_factor, k)
-    d2 = torch.empty((q, k), dtype=torch.float32, device=queries.device)
-    idx = torch.empty((q, k), dtype=torch.int32, device=queries.device)
+    """One kernel launch for a batch: targets (B, N, 3), tmask (B, N),
+    queries (B, Q, 3), any strides (a batch stride of 0 shares an input)
+    -> (d2, idx), each (B, Q, k)."""
+    b, q, n = queries.shape[0], queries.shape[1], targets.shape[1]
+    g = launch_geometry(q, n, bin_factor, k, b)
+    d2 = torch.empty((b, q, k), dtype=torch.float32, device=queries.device)
+    idx = torch.empty((b, q, k), dtype=torch.int32, device=queries.device)
     fn = _kernel_fn()
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream(queries.device).cuda_stream
         err = fn(targets.data_ptr(), *targets.stride(), tmask.data_ptr(),
-                 tmask.stride(0), queries.data_ptr(), *queries.stride(),
-                 q, n, g.tn, g.nbt, k, g.tq, g.threads, g.blocks,
+                 *tmask.stride(), queries.data_ptr(), *queries.stride(),
+                 b, q, n, g.tn, g.nbt, k, g.tq, g.threads, g.blocks,
                  g.smem_bytes, d2.data_ptr(), idx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dist_topk kernel launch failed: CUDA error {err}")
     dist_topk.launches += 1
     return d2, idx
+
+
+@torch.library.custom_op("velo_tpu_torch::dist_topk", mutates_args=())
+def _batched(targets: torch.Tensor, tmask: torch.Tensor,
+             queries: torch.Tensor, k: int,
+             bin_factor: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, N, 3), (B, N), (B, Q, 3) -> (B, Q, k) twice: on the card one
+    launch, on the CPU the plain version per sequence."""
+    if targets.device.type == "cuda":
+        return _launch(targets, tmask, queries, k, bin_factor)
+    return torch.func.vmap(dist_topk_reference,
+                           in_dims=(0, 0, 0, None, None))(
+        targets, tmask, queries, k, bin_factor)
+
+
+@_batched.register_fake
+def _(targets, tmask, queries, k, bin_factor):
+    shape = (queries.shape[0], queries.shape[1], k)
+    return (queries.new_empty(shape),
+            queries.new_empty(shape, dtype=torch.int32))
+
+
+@_batched.register_vmap
+def _(info, in_dims, targets, tmask, queries, k, bin_factor):
+    """The vmapped axis joins the batch axis: one launch for all."""
+    args = [batch_front(x, d, info.batch_size)
+            for x, d in zip((targets, tmask, queries), in_dims[:3])]
+    d2, idx = _batched(*args, k, bin_factor)
+    v = info.batch_size
+    return (d2.view(v, -1, *d2.shape[1:]),
+            idx.view(v, -1, *idx.shape[1:])), (0, 0)
+
+
+def batch_front(x: torch.Tensor, dim, size: int) -> torch.Tensor:
+    """``x`` with its vmapped axis ``dim`` (None: unbatched, expanded at
+    stride 0) merged into its leading batch axis: (size * B, ...)."""
+    x = x.expand(size, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.reshape(size * x.shape[1], *x.shape[2:])
 
 
 def _finish(queries, s_sel, idx):
@@ -207,12 +259,15 @@ def dist_topk(targets: torch.Tensor, tmask: torch.Tensor,
       bin_factor: B-way fold of each target tile.
 
     Returns (d2 (Q, k) float32 ascending, idx (Q, k) int32).  A CUDA tensor
-    runs the kernel (and counts one launch in ``dist_topk.launches``); a
-    CPU tensor runs :func:`dist_topk_reference`'s plain path.
+    runs the kernel (and counts one launch in ``dist_topk.launches``; under
+    ``torch.func.vmap``, one launch for the whole batch); a CPU tensor runs
+    :func:`dist_topk_reference`'s plain path.
     """
     if targets.device.type == "cuda":
         _check(targets, tmask, queries)
-        return _launch(targets, tmask, queries, k, bin_factor)
+        d2, idx = _batched(targets[None], tmask[None], queries[None], k,
+                           bin_factor)
+        return d2[0], idx[0]
     if targets.device.type == "cpu":
         return dist_topk_reference(targets, tmask, queries, k, bin_factor)
     raise ValueError(f"dist_topk: unsupported device {targets.device}")

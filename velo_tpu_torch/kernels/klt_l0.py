@@ -28,6 +28,12 @@ in place of the other.  Both fix the arithmetic: bilinear rows first, then
 columns; every 225-sum left to right along each patch row, then over rows
 0..14 in order; separate IEEE products and sums.  So on the card the two
 agree to the bit.
+
+The card path is the custom operator ``velo_tpu_torch::klt_l0`` on a
+leading batch axis.  Under ``torch.func.vmap`` (the batched odometry step,
+``pipeline/batch.py``) its batching rule merges the vmapped axis into that
+one and launches once for all sequences; on the CPU ``vmap`` traces the
+plain version's operations.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from velo_tpu_torch.kernels.dist_topk import batch_front
 from velo_tpu_torch.vision import pyramid as pyr
 
 PB_R = 32  # previous-image block rows
@@ -217,28 +224,67 @@ def _kernel_fn():
         from velo_tpu_torch.kernels import _build
 
         fn = _build.load("klt_l0").klt_l0_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, p, p, i, i, p, p, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, ll, p, ll, i, i, p, ll, p, ll, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, ...) with each sequence's block contiguous; the batch
+    stride stays what it is (0 for an input shared by all)."""
+    return x if x[0].is_contiguous() else x.contiguous()
+
+
 def _launch(prev, cur, uv_prev, uv_cur, iters):
-    H, W = prev.shape
-    K = uv_prev.shape[0]
-    uv_out = torch.empty((K, 2), dtype=torch.float32, device=prev.device)
-    ok_out = torch.empty((K,), dtype=torch.bool, device=prev.device)
+    """One kernel launch for a batch: images (B, H, W), positions
+    (B, K, 2) -> (uv (B, K, 2), ok (B, K))."""
+    prev, cur, uv_prev, uv_cur = map(_rows, (prev, cur, uv_prev, uv_cur))
+    B, H, W = prev.shape
+    K = uv_prev.shape[1]
+    uv_out = torch.empty((B, K, 2), dtype=torch.float32, device=prev.device)
+    ok_out = torch.empty((B, K), dtype=torch.bool, device=prev.device)
     fn = _kernel_fn()
     with torch.cuda.device(prev.device):
         stream = torch.cuda.current_stream(prev.device).cuda_stream
-        err = fn(prev.data_ptr(), cur.data_ptr(), H, W, uv_prev.data_ptr(),
-                 uv_cur.data_ptr(), K, iters, uv_out.data_ptr(),
-                 ok_out.data_ptr(), stream)
+        err = fn(prev.data_ptr(), prev.stride(0), cur.data_ptr(),
+                 cur.stride(0), H, W, uv_prev.data_ptr(), uv_prev.stride(0),
+                 uv_cur.data_ptr(), uv_cur.stride(0), K, iters, B,
+                 uv_out.data_ptr(), ok_out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"klt_l0 kernel launch failed: CUDA error {err}")
     track_level0.launches += 1
     return uv_out, ok_out
+
+
+@torch.library.custom_op("velo_tpu_torch::klt_l0", mutates_args=())
+def _batched(prev: torch.Tensor, cur: torch.Tensor, uv_prev: torch.Tensor,
+             uv_cur: torch.Tensor,
+             iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, W) twice, (B, K, 2) twice -> ((B, K, 2), (B, K)): on the
+    card one launch, on the CPU the plain version per sequence."""
+    if prev.device.type == "cuda":
+        return _launch(prev, cur, uv_prev, uv_cur, iters)
+    return torch.func.vmap(_plain, in_dims=(0, 0, 0, 0, None, None))(
+        prev, cur, uv_prev, uv_cur, HALFWIN, iters)
+
+
+@_batched.register_fake
+def _(prev, cur, uv_prev, uv_cur, iters):
+    B, K = uv_prev.shape[:2]
+    return (uv_prev.new_empty((B, K, 2)),
+            uv_prev.new_empty((B, K), dtype=torch.bool))
+
+
+@_batched.register_vmap
+def _(info, in_dims, prev, cur, uv_prev, uv_cur, iters):
+    """The vmapped axis joins the batch axis: one launch for all."""
+    v = info.batch_size
+    uv, ok = _batched(*(batch_front(x, d, v) for x, d in zip(
+        (prev, cur, uv_prev, uv_cur), in_dims[:4])), iters)
+    return (uv.view(v, -1, *uv.shape[1:]), ok.view(v, -1, *ok.shape[1:])), \
+        (0, 0)
 
 
 def track_level0(prev_img: torch.Tensor, cur_img: torch.Tensor,
@@ -254,11 +300,14 @@ def track_level0(prev_img: torch.Tensor, cur_img: torch.Tensor,
       iters: Gauss-Newton steps.
 
     A CUDA tensor runs the kernel (and counts one launch in
-    ``track_level0.launches``); a CPU tensor runs the plain version.
+    ``track_level0.launches``; under ``torch.func.vmap``, one launch for
+    the whole batch); a CPU tensor runs the plain version.
     """
     _check(prev_img, cur_img, uv_prev, uv_cur, cfg, iters)
     if prev_img.device.type == "cuda":
-        return _launch(prev_img, cur_img, uv_prev, uv_cur, iters)
+        uv, ok = _batched(prev_img[None], cur_img[None], uv_prev[None],
+                          uv_cur[None], iters)
+        return uv[0], ok[0]
     if prev_img.device.type == "cpu":
         return _plain(prev_img, cur_img, uv_prev, uv_cur, HALFWIN, iters)
     raise ValueError(f"track_level0: unsupported device {prev_img.device}")

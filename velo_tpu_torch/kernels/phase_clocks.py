@@ -48,7 +48,7 @@ def main() -> None:
               + rng.normal(0, 0.5, (q, 3))).astype(np.float32)
         tt, tmt, qt = (torch.as_tensor(x, device=dev) for x in (t, tm, qs))
         for _ in range(3):
-            dtk._launch(tt, tmt, qt, K, bf)
+            dtk._launch(tt[None], tmt[None], qt[None], K, bf)
         torch.cuda.synchronize()
         clocks = np.zeros((1024, 5), np.int64)
         err = lib.dist_topk_phase_clocks(clocks.ctypes.data)

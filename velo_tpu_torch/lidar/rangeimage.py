@@ -100,7 +100,8 @@ def build_range_image(pts: torch.Tensor, mask: torch.Tensor,
     # Invalid points all target cell 0 with the sentinel key (harmless).
     flat_cell = torch.where(ok, ring * W + col, 0).long()
     table = torch.full((R * W,), sentinel, dtype=torch.int64, device=dev)
-    table.scatter_reduce_(0, flat_cell, key, "amin", include_self=True)
+    table = table.scatter_reduce(0, flat_cell, key, "amin",
+                                 include_self=True)
 
     cell_valid = table != sentinel
     win_idx = torch.where(cell_valid, table & ((1 << _IDX_BITS) - 1), 0)

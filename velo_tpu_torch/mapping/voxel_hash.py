@@ -35,7 +35,6 @@ def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor,
     is what makes the survivor the lowest index, as ``jnp.argsort`` (stable)
     does in the reference.
     """
-    n = pts.shape[0]
     if center is None:
         center = torch.zeros(3, dtype=pts.dtype, device=pts.device)
     keys = torch.where(mask, _pack(_voxel_coords(pts, voxel_size, center)),
@@ -45,6 +44,6 @@ def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor,
     first = torch.cat([torch.ones(1, dtype=torch.bool, device=pts.device),
                        sk[1:] != sk[:-1]])
     keep_sorted = first & (sk != _SENTINEL)
-    keep = torch.zeros(n, dtype=torch.bool, device=pts.device)
-    keep[order] = keep_sorted
+    keep = torch.zeros_like(keys, dtype=torch.bool).scatter(0, order,
+                                                            keep_sorted)
     return mask & keep

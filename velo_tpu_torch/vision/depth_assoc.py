@@ -63,7 +63,7 @@ def build_depth_grid(pts_velo: torch.Tensor, mask: torch.Tensor,
     cell = torch.where(ok, cell, 0).long()
     table = torch.full((rows * cols,), _SENTINEL, dtype=torch.int32,
                        device=dev)
-    table.scatter_reduce_(0, cell, key, "amin", include_self=True)
+    table = table.scatter_reduce(0, cell, key, "amin", include_self=True)
     cell_ok = table != _SENTINEL
     win = torch.where(cell_ok, table & ((1 << _IDX_BITS) - 1), 0).long()
     return DepthGrid(

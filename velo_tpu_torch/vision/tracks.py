@@ -54,8 +54,8 @@ def replenish(table: TrackTable, corners: Corners, cfg) -> TrackTable:
 
     # Buckets already holding a live track are off limits (min-distance).
     occupied = torch.zeros((n_buckets,), dtype=torch.int32, device=dev)
-    occupied.scatter_reduce_(0, _bucket_of(table.uv, cfg),
-                             table.active.to(torch.int32), "amax")
+    occupied = occupied.scatter_reduce(0, _bucket_of(table.uv, cfg),
+                                       table.active.to(torch.int32), "amax")
     cand_ok = corners.valid & (occupied[_bucket_of(corners.uv, cfg)] == 0)
 
     # Compact candidates to the front, free slots to the front, zip them.
@@ -64,8 +64,9 @@ def replenish(table: TrackTable, corners: Corners, cfg) -> TrackTable:
     free_rank = torch.cumsum(free.to(torch.int32), 0) - 1  # (K,)
     # free_idx[r] = index of the r-th free slot (K past the last one).
     free_idx = torch.full((K + 1,), K, dtype=torch.int64, device=dev)
-    slots = torch.arange(K, device=dev)
-    free_idx.scatter_(0, torch.where(free, free_rank.long(), K), slots)
+    dest = torch.where(free, free_rank.long(), K)
+    slots = torch.arange(K, device=dev).expand_as(dest)
+    free_idx = free_idx.scatter(0, dest, slots)
     free_idx = free_idx[:K]
     n_free = torch.sum(free.to(torch.int32))
     # Candidate i goes to slot free_idx[cand_rank[i]] if both are in range.
