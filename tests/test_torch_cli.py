@@ -95,29 +95,11 @@ def test_checkpoint_and_resume(tmp_path, capsys):
                            "--resume", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flags, item", [
-    # The batch mode (ROADMAP item 10, ported) refuses what single-sequence
-    # mode refuses, before it simulates anything.
-    pytest.param(["--batch", "2", "--set", "s:ct_sweep=1"], "item 12",
-                 id="flags0-item 10"),
-    pytest.param(["--batch", "2", "--shard", "--set", "s:nn_engine=hash"],
-                 "item 12", id="flags1-item 10"),
-    (["--plot"], "item 13"),
-])
-def test_flags_not_ported_fail_loudly(tmp_path, flags, item):
-    """Before any work is done: no output directory appears."""
-    out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as exc:
-        tcli.main(SYNTH + flags + ["--out", str(out), "--device", "cpu"])
-    assert item in str(exc.value)
-    assert not out.exists()
-
-
 def test_refused_configs_fail_before_any_work(tmp_path):
     out = tmp_path / "out"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcli.main(SYNTH + ["--set", "s:ct_sweep=1", "--out", str(out),
-                           "--device", "cpu"])
+        tcli.main(SYNTH + ["--set", "s:nn_approx_impl=xla", "--out",
+                           str(out), "--device", "cpu"])
     assert not out.exists()
 
 

@@ -1,12 +1,15 @@
 """The port's own copies of the reference's framework-free modules
-(``config``, ``io/fixtures``, ``evaluation/kitti_metric``, ``io/kitti``)
+(``config``, ``io/fixtures``, ``evaluation/kitti_metric``, ``io/kitti``,
+``native/veloio.cpp``, ``evaluation/plots``, ``profiling.FrameLog``)
 held equal to their originals: the two packages share one tuning surface,
-one drive simulator, one drift metric and one set of KITTI file formats
-without the port importing ``velo_tpu``.
+one drive simulator, one drift metric, one set of KITTI file formats, one
+native scan loader and one set of plots without the port importing
+``velo_tpu``.
 """
 import ast
 import dataclasses
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -131,3 +134,31 @@ def test_kitti_io_copy_has_the_same_names():
                       if not n.startswith("_") and getattr(
                           v, "__module__", None) == mod.__name__)
     assert public(tkitti) == public(jkitti)
+
+
+def test_native_loader_source_byte_equal():
+    repo = Path(__file__).resolve().parent.parent
+    assert (repo / "velo_tpu_torch" / "native" / "veloio.cpp").read_bytes() \
+        == (repo / "velo_tpu" / "native" / "veloio.cpp").read_bytes()
+
+
+def test_plot_trajectory_source_equal_but_its_import():
+    """Source-equal, apart from the line that imports the port's own
+    ``kitti_metric``."""
+    from velo_tpu.evaluation import plots as jplots
+    from velo_tpu_torch.evaluation import plots as tplots
+
+    theirs = inspect.getsource(jplots.plot_trajectory)
+    ours = inspect.getsource(tplots.plot_trajectory)
+    line = "    from velo_tpu.evaluation import kitti_metric\n"
+    assert theirs.count(line) == 1
+    assert ours == theirs.replace(line, line.replace("velo_tpu.",
+                                                     "velo_tpu_torch."))
+
+
+def test_frame_log_source_equal():
+    from velo_tpu.evaluation import profiling as jprof
+    from velo_tpu_torch.evaluation import profiling as tprof
+
+    assert inspect.getsource(tprof.FrameLog) == inspect.getsource(
+        jprof.FrameLog)

@@ -334,9 +334,6 @@ def test_variant_eight_frames_end_to_end(frames, raw_scans,
 @pytest.mark.parametrize("change", [
     {"v:klt_impl": "matmul"},
     {"v:klt_impl": "window"},
-    {"s:ct_sweep": True},
-    {"s:deskew_exact_lag": True},
-    {"s:nn_engine": "hash"},
     {"s:nn_approx_impl": "xla"},
 ])
 def test_configs_outside_the_slice_are_refused(frames, change):

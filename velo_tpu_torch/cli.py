@@ -22,14 +22,6 @@ from typing import NamedTuple
 
 import numpy as np
 
-# Flags the parser accepts, as the reference's does, but whose modules are
-# not ported yet: each ends in an error that names its ROADMAP item.
-_NOT_PORTED = {
-    "plot": "--plot (evaluation/plots.py, matplotlib): ROADMAP.md Queue 1 "
-            "item 13",
-}
-
-
 def build_parser():
     p = argparse.ArgumentParser(prog="velo-tpu-torch", description=__doc__)
     src = p.add_mutually_exclusive_group(required=True)
@@ -66,8 +58,7 @@ def build_parser():
     p.add_argument("--resume", action="store_true",
                    help="resume from --checkpoint, skipping done frames")
     p.add_argument("--plot", action="store_true",
-                   help="write trajectory + drift plots next to the poses "
-                        "(not ported yet)")
+                   help="write trajectory + drift plots next to the poses")
     p.add_argument("--smooth", action="store_true",
                    help="non-causal pass: refine the trajectory against "
                         "windowed multi-frame maps (offline/batch eval; "
@@ -218,12 +209,11 @@ def run_batch_mode(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(item)
-
     if args.batch:
         return run_batch_mode(args)
+    if args.plot:
+        # Fail before any frame runs, not after the whole sequence.
+        import matplotlib  # noqa: F401
 
     from velo_tpu_torch.config import LidarConfig, VeloConfig, VisionConfig
     from velo_tpu_torch.evaluation import kitti_metric
@@ -303,14 +293,44 @@ def main(argv=None):
         img_pf = kitti.ImagePrefetcher(seq.image, n) if use_vision else None
 
         def gen():
-            # The synchronous Python reader (the native prefetch loader is
-            # ROADMAP.md Queue 1 item 11).
-            for i in range(n):
-                scan, mask = seq.scan(i)
+            # The native prefetch loader first (pre-binning in its C++
+            # workers with prebin_host); the synchronous Python reader when
+            # the library cannot be built or finds no scans.
+            def _emit(scan, mask, i):
                 if cfg.prebin_host:
                     scan, mask = ri_mod.bin_scan_host(scan[mask], cfg.lidar)
-                yield ((scan, mask, img_pf.get(i)) if use_vision
-                       else (scan, mask))
+                return (scan, mask, img_pf.get(i)) if use_vision else (
+                    scan, mask)
+
+            from velo_tpu_torch.io import native_loader
+
+            try:
+                if cfg.prebin_host:
+                    loader = native_loader.NativeBinnedScanLoader(
+                        seq.velo_dir, cfg.lidar, n_max=cfg.n_max_points)
+                    reader = "native-binned"
+                else:
+                    loader = native_loader.NativeScanLoader(
+                        seq.velo_dir, cfg.n_max_points)
+                    reader = "native"
+            except (RuntimeError, FileNotFoundError):
+                loader, reader = None, "python"
+            print(f"scan reader: {reader}", file=sys.stderr)
+            if loader is None:
+                for i in range(n):
+                    yield _emit(*seq.scan(i), i)
+                return
+            try:
+                for i, (scan, mask) in enumerate(loader):
+                    if i >= n:
+                        break
+                    if reader == "native-binned":
+                        yield ((scan, mask, img_pf.get(i)) if use_vision
+                               else (scan, mask))
+                    else:
+                        yield _emit(scan, mask, i)
+            finally:
+                loader.close()
 
         frames = gen()
         gt_cam = seq.gt_poses[:n] if seq.gt_poses is not None else None
@@ -383,6 +403,12 @@ def main(argv=None):
             f"({errs.n_segments} segments); ATE {ate:.3f} m",
             file=sys.stderr,
         )
+    if args.plot:
+        from velo_tpu_torch.evaluation import plots
+
+        written = plots.plot_trajectory(args.out, seq_name, poses_cam,
+                                        gt_cam)
+        print("plots: " + ", ".join(written), file=sys.stderr)
     if args.json:
         print(json.dumps(result))
     return 0

@@ -6,6 +6,12 @@ format with ``zlib`` and ``struct``, so the port's image input does not
 depend on an image library being installed: the result is the same on
 every machine.  Anything else in a file (colour, palette, alpha, 16 bit,
 interlace) raises a ``ValueError`` that names the feature.
+
+The scanline filters are undone in C++ (``native/png_unfilter.cpp``,
+through ``io.native_loader``), in one ctypes call that releases the GIL,
+so ``kitti.ImagePrefetcher``'s threads decode while the frame loop runs;
+inflation (``zlib``) releases it too.  Without g++ to build that library,
+:func:`read_gray8` raises.
 """
 from __future__ import annotations
 
@@ -40,10 +46,11 @@ def _chunks(data: bytes, path: str):
     raise ValueError(f"{path}: PNG without an IEND chunk")
 
 
-def _unfilter(raw: np.ndarray, height: int, width: int,
-              path: str) -> np.ndarray:
+def _unfilter_reference(raw: np.ndarray, height: int, width: int,
+                        path: str) -> np.ndarray:
     """Undo the per-scanline filters of an 8-bit, one-channel image: ``raw``
-    is (H, 1 + W) uint8, filter type first."""
+    is (H, 1 + W) uint8, filter type first.  The plain Python version of
+    :func:`_unfilter`; the tests hold the two equal byte for byte."""
     out = np.zeros((height, width), np.uint8)
     zero = np.zeros(width, np.uint8)
     for y in range(height):
@@ -77,6 +84,25 @@ def _unfilter(raw: np.ndarray, height: int, width: int,
             out[y] = row.astype(np.uint8)
         else:
             raise ValueError(f"{path}: unknown PNG filter type {ftype}")
+    return out
+
+
+def _unfilter(raw: np.ndarray, height: int, width: int,
+              path: str) -> np.ndarray:
+    """:func:`_unfilter_reference` in one native call (GIL released)."""
+    import ctypes
+
+    from velo_tpu_torch.io import native_loader
+
+    lib = native_loader.load_library()
+    raw = np.ascontiguousarray(raw, np.uint8)
+    out = np.empty((height, width), np.uint8)
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    bad = lib.velo_png_unfilter(raw.ctypes.data_as(u8), height, width,
+                                out.ctypes.data_as(u8))
+    if bad:
+        raise ValueError(f"{path}: unknown PNG filter type "
+                         f"{int(raw[bad - 1, 0])}")
     return out
 
 
@@ -120,15 +146,39 @@ def _chunk(ctype: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(ctype + payload)))
 
 
-def write_gray8(path: str, img: np.ndarray) -> None:
-    """uint8 (H, W) -> 8-bit grayscale PNG (filter 0 on every scanline)."""
+def _filter_rows(img: np.ndarray, filters) -> np.ndarray:
+    """(H, W) uint8 -> (H, 1 + W) scanlines, row y filtered with type
+    ``filters[y]`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+    height, width = img.shape
+    x = img.astype(np.int64)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]  # left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]  # up
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]  # up-left
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    pred = {0: 0, 1: a, 2: b, 3: (a + b) >> 1, 4: paeth}
+    raw = np.zeros((height, width + 1), np.uint8)
+    for y, f in enumerate(filters):
+        p_y = pred[int(f)]
+        raw[y, 0] = f
+        raw[y, 1:] = (x[y] - (p_y[y] if f else 0)) & 255
+    return raw
+
+
+def write_gray8(path: str, img: np.ndarray, filters=None) -> None:
+    """uint8 (H, W) -> 8-bit grayscale PNG.  ``filters`` gives each
+    scanline's filter type (default: 0, None, on every row)."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 2:
         raise ValueError("write_gray8 takes a uint8 (H, W) array, got "
                          f"{img.dtype} {img.shape}")
     height, width = img.shape
-    raw = np.zeros((height, width + 1), np.uint8)
-    raw[:, 1:] = img
+    raw = _filter_rows(img, np.zeros(height, int) if filters is None
+                       else filters)
     with open(path, "wb") as f:
         f.write(_SIGNATURE)
         f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 0,

@@ -10,6 +10,14 @@ reprojection and epipolar blocks), redeskew, re-solve -> plausibility gate
 -> scan-to-map refinement -> velocity update -> map insert/maintain ->
 [fused: LiDAR depth at the tracked pixels, corner replenishment].
 
+The solver variants of ``SolverConfig``: ``ct_sweep`` replaces the
+solve / redeskew / re-solve with one 12-DoF solve of the pose and the
+scan's own sweep motion; ``deskew_exact_lag`` re-corrects the previous
+scan's targets with the motion solved now and inserts the previous scan
+into the map one frame late, at its exact motion; ``nn_engine="hash"``
+searches correspondences in a voxel-hash grid instead of through the
+``dist_topk`` kernel.
+
 ``use_vision=True`` is the fused, vision-enhanced pipeline; with
 ``klt_impl="pallas"`` its level-0 KLT runs the ``kernels.klt_l0`` kernel.
 The carry is a fixed-shape tuple of tensors on one device.  The
@@ -43,9 +51,6 @@ from velo_tpu_torch.vision import depth_assoc
 from velo_tpu_torch.vision import klt as klt_mod
 from velo_tpu_torch.vision import pyramid as pyr_mod
 from velo_tpu_torch.vision import tracks as tracks_mod
-
-_ITEM12 = "ROADMAP.md Queue 1 item 12 (off-default solver variants)"
-
 
 class VisionCarry(NamedTuple):
     pyr: tuple  # previous image pyramid
@@ -100,12 +105,6 @@ def check_slice(cfg) -> None:
     sc = cfg.solver
     if cfg.use_vision:
         klt_mod.check_impl(cfg.vision)
-    if sc.ct_sweep:
-        raise NotImplementedError(f"ct_sweep=True: {_ITEM12}")
-    if sc.deskew_exact_lag:
-        raise NotImplementedError(f"deskew_exact_lag=True: {_ITEM12}")
-    if sc.nn_engine != "dense":
-        raise NotImplementedError(f"nn_engine={sc.nn_engine!r}: {_ITEM12}")
     if sc.nn_approx_impl != "pallas":
         raise NotImplementedError(
             f"nn_approx_impl={sc.nn_approx_impl!r}: XLA's approx_max_k has no "
@@ -169,6 +168,13 @@ def _extract_features_from_ri(ri, cfg):
 
 def _masked(pts, mask):
     return torch.where(mask[:, None], pts, 0.0)
+
+
+def _limit_norm(v: torch.Tensor, limit: float) -> torch.Tensor:
+    """The 3-vector ``v`` scaled down to norm ``limit`` where it is longer
+    (one correctly rounded division, on either device)."""
+    n = torch.clamp(fp.norm3(v), min=1e-9)
+    return v * torch.clamp(torch.full_like(n, limit) / n, max=1.0)
 
 
 def _nanmedian0(a: torch.Tensor) -> torch.Tensor:
@@ -287,12 +293,12 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg,
             carry, image, cam, T_pred, cfg)
 
     # 3) Scan-to-scan solve vs the previous features, with one global
-    # candidate search per target set shared by both solves.
+    # candidate search per target set shared by both solves (dense engine).
     edge_targets = icp.make_targets(carry.prev_edges, carry.prev_edge_mask,
                                     payload=carry.prev_edge_ring[:, None])
     planar_targets = icp.make_targets(carry.prev_planars,
                                       carry.prev_planar_mask)
-    if sc.reuse_candidates:
+    if sc.nn_engine == "dense" and sc.reuse_candidates:
         e_cands = icp.build_candidates(edge_targets, feats.edges,
                                        feats.edge_mask, T_pred, sc)
         p_cands = icp.build_candidates(planar_targets, feats.planars,
@@ -301,29 +307,79 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg,
         e_cands = p_cands = None
     # The motion prior applies once a velocity estimate exists.
     prior_scale = (fi >= 2).to(torch.float32)
-    T_rel, diag = icp.solve_scan_to_scan(
-        feats.edges, feats.edge_mask, feats.planars, feats.planar_mask,
-        edge_targets, planar_targets, T_pred, sc, vis=vis,
-        edge_cands=e_cands, planar_cands=p_cands, prior_T=T_pred,
-        prior_scale=prior_scale)
-    deskew_ref = carry.delta
-    if cfg.use_deskew:
+
+    def fix(pts, phase, mask, old, new):
+        return _masked(deskew_mod.redeskew(pts, phase, old, new), mask)
+
+    def fix_feats(f, old, new):
+        return f._replace(
+            edges=fix(f.edges, f.edge_phase, f.edge_mask, old, new),
+            planars=fix(f.planars, f.planar_phase, f.planar_mask, old, new))
+
+    if cfg.use_deskew and sc.ct_sweep:
+        # Continuous time: one 12-DoF solve of the pose and the scan's own
+        # sweep motion xi2 replaces the redeskew fixed point.
+        T_rel, xi2, diag = icp.solve_scan_to_scan_ct(
+            feats.edges, feats.edge_phase, feats.edge_mask, feats.planars,
+            feats.planar_phase, feats.planar_mask, edge_targets,
+            planar_targets, T_pred, carry.delta, sc, vis=vis,
+            edge_cands=e_cands, planar_cands=p_cands, prior_T=T_pred,
+            prior_scale=prior_scale)
+        # The sweep motion cannot leave the inter-frame motion by more than
+        # physical acceleration allows: clamp the deviation, so that a
+        # weakly observed xi2 cannot corrupt the stored features or map.
+        base = se3.log(T_rel)
+        dev2 = xi2 - base
+        dev2 = torch.cat([_limit_norm(dev2[:3], sc.max_accel_trans),
+                          _limit_norm(dev2[3:], sc.max_accel_rot)])
+        # Frames 0/1 have no correction reference: keep the identity
+        # re-correction so both scans carry matching distortion.
+        xi2 = torch.where(fi >= 2, base + dev2, carry.delta)
+        feats = fix_feats(feats, carry.delta, xi2)
+        tfeats = fix_feats(tfeats, carry.delta, xi2)
+        deskew_ref = None  # the features carry their final correction
+    else:
+        T_rel, diag = icp.solve_scan_to_scan(
+            feats.edges, feats.edge_mask, feats.planars, feats.planar_mask,
+            edge_targets, planar_targets, T_pred, sc, vis=vis,
+            edge_cands=e_cands, planar_cands=p_cands, prior_T=T_pred,
+            prior_scale=prior_scale)
+        deskew_ref = carry.delta
+    if cfg.use_deskew and not sc.ct_sweep:
         # Deskew/solve fixed point: re-correct the features with the solved
         # motion and solve again.  Frames 0/1 keep identity re-correction.
         delta1 = torch.where(fi >= 2, se3.log(T_rel), carry.delta)
+        feats = fix_feats(feats, carry.delta, delta1)
+        tfeats = fix_feats(tfeats, carry.delta, delta1)
+        if sc.deskew_exact_lag and sc.exact_lag_targets:
+            # Exact one-frame-lag deskew of the targets: scan i-1's sweep
+            # spans poses i-1 -> i, so its true sweep motion is the delta
+            # solved now, not the one it was stored with (the identity
+            # under constant velocity).  The stored correction reference is
+            # carry.delta, the previous frame's realized motion.
+            edge_targets = icp.make_targets(
+                fix(carry.prev_edges, carry.prev_edge_phase,
+                    carry.prev_edge_mask, carry.delta, delta1),
+                carry.prev_edge_mask, payload=carry.prev_edge_ring[:, None])
+            planar_targets = icp.make_targets(
+                fix(carry.prev_planars, carry.prev_planar_phase,
+                    carry.prev_planar_mask, carry.delta, delta1),
+                carry.prev_planar_mask)
 
-        def fix(pts, phase, mask):
-            return _masked(deskew_mod.redeskew(pts, phase, carry.delta,
-                                               delta1), mask)
+            def fix_cache(cands):
+                # The cache gathered target coordinates before this
+                # redeskew: re-correct them, with the phase recovered from
+                # the azimuth (as it was assigned, up to the sub-degree
+                # shift of the correction itself).
+                if cands is None:
+                    return None
+                flat = cands.pts.reshape(-1, 3)
+                ph = deskew_mod.azimuth_phase(flat,
+                                              az_start=cfg.lidar.az_start)
+                fixed = deskew_mod.redeskew(flat, ph, carry.delta, delta1)
+                return cands._replace(pts=fixed.reshape(cands.pts.shape))
 
-        feats = feats._replace(
-            edges=fix(feats.edges, feats.edge_phase, feats.edge_mask),
-            planars=fix(feats.planars, feats.planar_phase,
-                        feats.planar_mask))
-        tfeats = tfeats._replace(
-            edges=fix(tfeats.edges, tfeats.edge_phase, tfeats.edge_mask),
-            planars=fix(tfeats.planars, tfeats.planar_phase,
-                        tfeats.planar_mask))
+            e_cands, p_cands = fix_cache(e_cands), fix_cache(p_cands)
         T_rel, diag = icp.solve_scan_to_scan(
             feats.edges, feats.edge_mask, feats.planars, feats.planar_mask,
             edge_targets, planar_targets, T_rel, sc, vis=vis,
@@ -375,25 +431,42 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg,
     delta_new = se3.log(se3.compose(se3.inv(carry.T_w), T_w))
     delta_new = torch.where(fi == 0, 0.0, delta_new)
 
-    # 6) Re-correct the targets with the solved motion.
-    if cfg.use_deskew:
-        edges_fix = _masked(deskew_mod.redeskew(
-            tfeats.edges, tfeats.edge_phase, deskew_ref, delta_new),
-            tfeats.edge_mask)
-        planars_fix = _masked(deskew_mod.redeskew(
-            tfeats.planars, tfeats.planar_phase, deskew_ref, delta_new),
-            tfeats.planar_mask)
+    # 6) Re-correct the targets with the solved motion (the
+    # continuous-time path has corrected them already).
+    if cfg.use_deskew and deskew_ref is not None:
+        edges_fix = fix(tfeats.edges, tfeats.edge_phase, tfeats.edge_mask,
+                        deskew_ref, delta_new)
+        planars_fix = fix(tfeats.planars, tfeats.planar_phase,
+                          tfeats.planar_mask, deskew_ref, delta_new)
     else:
         edges_fix, planars_fix = tfeats.edges, tfeats.planars
 
     # 7) Map update: insert world-frame features, maintain on a cadence.
     edge_map, planar_map = carry.edge_map, carry.planar_map
     if cfg.use_map:
-        edge_map = local_map.insert(edge_map, se3.apply(T_w, edges_fix),
-                                    tfeats.edge_mask)
+        if cfg.use_deskew and not sc.ct_sweep and sc.deskew_exact_lag:
+            # Exact-lag insert: this frame's realized motion pins the
+            # previous scan's sweep motion, so insert the previous scan's
+            # features, re-corrected with it, at the previous pose: one
+            # frame late, without the map accumulating O(accel) distortion.
+            exact = torch.where(fi == 0, carry.delta, delta_new)
+            ins_T = carry.T_w
+            ins_edges = deskew_mod.redeskew(
+                carry.prev_edges, carry.prev_edge_phase, carry.delta, exact)
+            ins_planars = deskew_mod.redeskew(
+                carry.prev_planars, carry.prev_planar_phase, carry.delta,
+                exact)
+            ins_edge_mask = carry.prev_edge_mask
+            ins_planar_mask = carry.prev_planar_mask
+        else:
+            ins_T, ins_edges, ins_planars = T_w, edges_fix, planars_fix
+            ins_edge_mask, ins_planar_mask = (tfeats.edge_mask,
+                                              tfeats.planar_mask)
+        edge_map = local_map.insert(edge_map, se3.apply(ins_T, ins_edges),
+                                    ins_edge_mask)
         planar_map = local_map.insert(planar_map,
-                                      se3.apply(T_w, planars_fix),
-                                      tfeats.planar_mask)
+                                      se3.apply(ins_T, ins_planars),
+                                      ins_planar_mask)
         if carry.frame_host % max(cfg.map.maintain_every, 1) == 0:
             center = T_w[:3, 3]
             edge_map = local_map.maintain(edge_map, center,

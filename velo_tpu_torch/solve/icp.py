@@ -1,14 +1,18 @@
 """Outer ICP loops: scan-to-scan and scan-to-map solves
-(port of the dense-engine path of ``velo_tpu/solve/icp.py``).
+(port of ``velo_tpu/solve/icp.py``).
 
 Each solve is an outer loop that re-searches correspondences after every
-pose update around an inner LM solve.  The global search runs once per
-target set (``build_candidates``: the ``dist_topk`` kernel at the initial
-pose, 16 candidates per query); the outer iterations re-rank only those
-candidates.  The solved variable ``T_target_cur`` maps current-scan
-coordinates into the target frame (previous scan, or map/world).  With
-``vis`` (the fused path) the scan-to-scan system also carries the visual
-reprojection and epipolar blocks.
+pose update around an inner LM solve.  ``SolverConfig.nn_engine`` selects
+the search: "dense" runs the global search once per target set
+(``build_candidates``: the ``dist_topk`` kernel at the initial pose, 16
+candidates per query) and the outer iterations re-rank only those
+candidates; "hash" queries a voxel-hash grid of the targets
+(``mapping.voxel_hash``) at every outer iteration, without the kernel.
+The solved variable ``T_target_cur`` maps current-scan coordinates into
+the target frame (previous scan, or map/world).  With ``vis`` (the fused
+path) the scan-to-scan system also carries the visual reprojection and
+epipolar blocks.  ``solve_scan_to_scan_ct`` (``ct_sweep``) solves 12 DoF:
+the pose and the scan's own sweep motion.
 """
 from __future__ import annotations
 
@@ -19,10 +23,11 @@ import torch
 from velo_tpu_torch import fp
 from velo_tpu_torch.geom import linalg as lin3
 from velo_tpu_torch.geom import se3
-from velo_tpu_torch.mapping import dense_nn
+from velo_tpu_torch.lidar import deskew as deskew_mod
+from velo_tpu_torch.mapping import dense_nn, voxel_hash
 from velo_tpu_torch.mapping.dense_nn import TargetSet, make_targets  # noqa: F401
 from velo_tpu_torch.solve import residuals as res
-from velo_tpu_torch.solve.lm import lm_solve
+from velo_tpu_torch.solve.lm import lm_solve, lm_solve_ct
 
 _BIG = 10**6
 _MIN_CORR = 20  # degenerate-frame gate: fewer inliers => keep the prior pose
@@ -65,13 +70,6 @@ class CandCache(NamedTuple):
     pts: torch.Tensor  # (Q, C, 3) candidate target points per query
     payload: torch.Tensor  # (Q, C, P)
     ok: torch.Tensor  # (Q, C)
-
-
-def _check_engine(cfg) -> None:
-    if cfg.nn_engine != "dense":
-        raise NotImplementedError(
-            f"nn_engine={cfg.nn_engine!r}: the voxel-hash engine is ROADMAP.md "
-            "Queue 1 item 12 (off-default solver variants)")
 
 
 def build_candidates(targets: TargetSet, queries: torch.Tensor,
@@ -121,8 +119,25 @@ def _make_engine(targets: TargetSet, queries: torch.Tensor,
                  qmask: torch.Tensor, T_init: torch.Tensor, cfg,
                  cands: CandCache | None = None):
     """``query(p, mask, k) -> (nbr (Q,k,3), payload (Q,k,P), dist, valid)``
-    of the dense engine; ``cands`` reuses a caller's candidate cache."""
-    _check_engine(cfg)
+    of ``cfg.nn_engine``; ``cands`` reuses a caller's candidate cache
+    (dense engine only)."""
+    if cfg.nn_engine == "hash":
+        # Centre the packed voxel keys on the cloud so world-frame maps stay
+        # within the +/-511-cell key window.
+        w = targets.mask.to(targets.pts.dtype)
+        center = fp.sum(targets.pts * w[:, None], dim=0) / torch.clamp(
+            fp.sum(w), min=1.0)
+        grid = voxel_hash.build_grid(targets.pts, targets.mask,
+                                     cfg.voxel_size, center=center,
+                                     payload=targets.payload)
+
+        def query(p, mask, k):
+            idx, dist, val = voxel_hash.knn(
+                grid, p, mask, k=k, max_dist=cfg.corr_max_dist,
+                occupancy=cfg.voxel_occupancy)
+            return grid.pts[idx], grid.payload[idx], dist, val
+
+        return query
     if cands is None:
         cands = build_candidates(targets, queries, qmask, T_init, cfg)
     return _cand_query(cands, cfg)
@@ -370,6 +385,14 @@ def _make_stage(cfg, prior_T, prior_scale, build_noprior):
     return stage
 
 
+def _empty_diag(dev) -> SolveDiag:
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return SolveDiag(n_edge=zero, n_planar=zero,
+                     cost=torch.zeros((), device=dev),
+                     degenerate=torch.zeros((), dtype=torch.bool, device=dev),
+                     lm_accept=zero)
+
+
 def _solve(edges, edge_mask, planars, planar_mask, T_init, cfg, outer,
            prior_T, prior_scale, fit, vis=None):
     """The outer loop shared by both solves: ``fit(T) -> (a, b, e_ok, n, d,
@@ -378,13 +401,8 @@ def _solve(edges, edge_mask, planars, planar_mask, T_init, cfg, outer,
     the deferred-reject loop on the full dynamic system
     (``prior_obs_impl="deferred"``) or on the stage (``"deferred_tail"``),
     or on the classic system when the obs prior is inactive."""
-    dev = T_init.device
     T = T_init
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    diag = SolveDiag(n_edge=zero, n_planar=zero,
-                     cost=torch.zeros((), device=dev),
-                     degenerate=torch.zeros((), dtype=torch.bool, device=dev),
-                     lm_accept=zero)
+    diag = _empty_diag(T_init.device)
     for _ in range(outer):
         a, b, e_ok, n, d, p_ok, q_kw = fit(T)
         corr = (edges, edge_mask, a, b, e_ok, planars, planar_mask, n, d,
@@ -463,3 +481,170 @@ def solve_scan_to_map(cur_edges, cur_edge_mask, cur_planars,
 
     return _solve(cur_edges, cur_edge_mask, cur_planars, cur_planar_mask,
                   T_init, cfg, outer, prior_T, prior_scale, fit)
+
+
+def _make_stage_ct(cfg, prior_T, prior_scale, build_noprior):
+    """12-DoF variant of :func:`_make_stage` for :func:`lm_solve_ct`; the
+    prior touches only the pose block of the (12, 12) system."""
+    if prior_T is None or cfg.prior_obs_gain <= 0.0:
+        return None
+    w_pr, prior_inv = _prior_weights(cfg, prior_T, prior_scale)
+    if w_pr is None:
+        return None
+
+    def stage(T, xi2, basis=None):
+        H0, g0, c0 = build_noprior(T, xi2)
+        if basis is None:
+            basis = obs_prior_basis(cfg, w_pr, H0[:6, :6])
+
+        def prior_terms(T_at):
+            return _obs_prior_terms(basis,
+                                    se3.log(se3.compose(T_at, prior_inv)))
+
+        Hp, gp, cp = prior_terms(T)
+
+        def trial_cost(T_try, xi2_try):
+            return build_noprior(T_try, xi2_try)[2] + prior_terms(T_try)[2]
+
+        return (H0 + _pad12(Hp), g0 + _pad12(gp), c0 + cp, trial_cost,
+                basis)
+
+    return stage
+
+
+def _pad12(x: torch.Tensor) -> torch.Tensor:
+    """A pose-block term, (6, 6) or (6,), as its (12, 12) or (12,) part:
+    added out of place, so the sum also runs under vmap."""
+    return torch.nn.functional.pad(x, (0, 6) * x.dim())
+
+
+def make_lidar_system_ct(edges_base, edge_phase, edge_mask, line_a, line_b,
+                         line_ok, planars_base, planar_phase, planar_mask,
+                         pl_n, pl_d, pl_ok, xi_ref, cfg,
+                         vis: VisData | None = None, edge_q=None,
+                         planar_q=None, prior_T=None, prior_scale=None):
+    """12-DoF continuous-time system: ``build(T, xi2) -> (H (12,12), g
+    (12,), cost)`` over the pose T and the current scan's own sweep motion
+    xi2.
+
+    A feature measured at phase s maps through ``T @ exp(s*xi2)``, so the
+    distortion field is estimated from the scan itself; ``xi_ref`` is the
+    motion the features were deskewed with before extraction, and
+    ``build`` re-expresses them for any xi2 by a redeskew.  A coupling
+    prior ``xi2 ~ log(T)`` (constant velocity across the two
+    half-intervals) conditions the extra 6 DoF where the geometry cannot.
+    The visual blocks and the motion prior touch only the pose block
+    (camera observations are global-shutter).
+    """
+    w_prior, prior_inv = _prior_weights(cfg, prior_T, prior_scale)
+    dev = edges_base.device
+    w_couple = torch.tensor(
+        [cfg.couple_weight_trans] * 3 + [cfg.couple_weight_rot] * 3,
+        dtype=torch.float32, device=dev)
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    Jc = torch.cat([-eye6, eye6], dim=1)  # (6, 12) d(xi2 - log T)
+
+    def lidar_block(base, phase, mask, fit_res, q, T, xi2):
+        cur = deskew_mod.redeskew(base, phase, xi_ref, xi2)
+        cur = torch.where(mask[:, None], cur, 0.0)
+        p = se3.apply(T, cur)
+        r, dr_dp, ok = fit_res(p)
+        w = res.robust_weight(r, cfg.huber_delta_icp, cfg.icp_loss) * ok
+        if q is not None:
+            w = w * q
+        J1 = _chain(dr_dp, res.point_jacobian(p))
+        # dp'/dxi2 = s * R_T [I | -hat(cur)]  (first order in the
+        # per-point angle).
+        dp2 = fp.einsum("ab,kbj->kaj", T[:3, :3],
+                        res.point_jacobian(cur)) * phase[:, None, None]
+        J = torch.cat([J1, _chain(dr_dp, dp2)], dim=-1)  # (K, 12)
+        H = fp.matmul((J * w[:, None]).T, J)
+        g = fp.matmul(J.T, (w * r)[:, None])[:, 0]
+        cost = fp.sum(
+            res.robust_cost(r, cfg.huber_delta_icp, cfg.icp_loss) * ok)
+        return H, g, cost
+
+    def build(T, xi2):
+        He, ge, ce = lidar_block(
+            edges_base, edge_phase, edge_mask,
+            lambda p: res.point_to_line(p, line_a, line_b,
+                                        line_ok & edge_mask),
+            edge_q, T, xi2)
+        Hp, gp, cp = lidar_block(
+            planars_base, planar_phase, planar_mask,
+            lambda p: res.point_to_plane(p, pl_n, pl_d, pl_ok & planar_mask),
+            planar_q, T, xi2)
+        H, g, cost = He + Hp, ge + gp, ce + cp
+
+        # Constant-velocity coupling of the inter-frame and the intra-sweep
+        # motion.
+        r_c = xi2 - se3.log(T)
+        H = H + fp.matmul(Jc.T * w_couple[None, :], Jc)
+        g = g + fp.matmul(Jc.T, (w_couple * r_c)[:, None])[:, 0]
+        cost = cost + 0.5 * fp.sum(w_couple * r_c * r_c)
+
+        # The pose block's visual and prior terms, as the reference's
+        # _vis_prior_terms6: the prior's observability source is the
+        # geometric pose block plus the visual blocks.
+        Ha = torch.zeros((6, 6), dtype=T.dtype, device=T.device)
+        ga = torch.zeros((6,), dtype=T.dtype, device=T.device)
+        ca = torch.zeros((), dtype=T.dtype, device=T.device)
+        if vis is not None:
+            Ha, ga, ca = _vis_terms6(T, cfg, vis)
+        if w_prior is not None:
+            Hr, gr, cr = _prior_terms6(T, cfg, w_prior, prior_inv,
+                                       H[:6, :6] + Ha)
+            Ha, ga, ca = Ha + Hr, ga + gr, ca + cr
+        return H + _pad12(Ha), g + _pad12(ga), cost + ca
+
+    return build
+
+
+def solve_scan_to_scan_ct(edges_base, edge_phase, edge_mask, planars_base,
+                          planar_phase, planar_mask,
+                          edge_targets: TargetSet, planar_targets: TargetSet,
+                          T_init, xi_ref, cfg, iters: Optional[int] = None,
+                          vis: Optional[VisData] = None,
+                          edge_cands: Optional[CandCache] = None,
+                          planar_cands: Optional[CandCache] = None,
+                          prior_T=None, prior_scale=None):
+    """Continuous-time scan-to-scan solve: returns (T, xi2, SolveDiag).
+
+    Replaces the (solve -> redeskew -> re-solve) fixed point of the 6-DoF
+    path: the sweep motion is estimated jointly, so one solve registers
+    the scan and undistorts it.  ``xi_ref`` is the prediction the features
+    were deskewed with, and xi2's initial value.
+    """
+    outer = cfg.icp_iters_odom if iters is None else iters
+    eq = _make_engine(edge_targets, edges_base, edge_mask, T_init, cfg,
+                      cands=edge_cands)
+    pq = _make_engine(planar_targets, planars_base, planar_mask, T_init,
+                      cfg, cands=planar_cands)
+    T, xi2 = T_init, xi_ref
+    diag = _empty_diag(T_init.device)
+    for _ in range(outer):
+        e_cur = torch.where(edge_mask[:, None], deskew_mod.redeskew(
+            edges_base, edge_phase, xi_ref, xi2), 0.0)
+        a, b, e_ok = _edge_lines_2pt(eq, se3.apply(T, e_cur), edge_mask)
+        p_cur = torch.where(planar_mask[:, None], deskew_mod.redeskew(
+            planars_base, planar_phase, xi_ref, xi2), 0.0)
+        n, d, p_ok, p_q = _planar_planes_fit(pq, se3.apply(T, p_cur),
+                                             planar_mask, cfg.map_knn)
+        corr = (edges_base, edge_phase, edge_mask, a, b, e_ok, planars_base,
+                planar_phase, planar_mask, n, d, p_ok, xi_ref, cfg)
+        stage = _make_stage_ct(cfg, prior_T, prior_scale,
+                               make_lidar_system_ct(*corr, vis=vis,
+                                                    planar_q=p_q))
+        build = None if stage is not None else make_lidar_system_ct(
+            *corr, vis=vis, planar_q=p_q, prior_T=prior_T,
+            prior_scale=prior_scale)
+        n_e = torch.sum(e_ok, dtype=torch.int32)
+        n_p = torch.sum(p_ok, dtype=torch.int32)
+        enough = (n_e + n_p) >= _MIN_CORR
+        T_new, xi2_new, st = lm_solve_ct(build, T, xi2, cfg, stage=stage)
+        T = torch.where(enough, T_new, T)
+        xi2 = torch.where(enough, xi2_new, xi2)
+        diag = SolveDiag(n_edge=n_e, n_planar=n_p, cost=st.cost,
+                         degenerate=~enough,
+                         lm_accept=diag.lm_accept + st.n_accept)
+    return T, xi2, diag

@@ -1,6 +1,6 @@
-"""Fixed-iteration 6-DoF Levenberg-Marquardt on SE(3)
-(port of ``lm_solve`` and its deferred-reject loops in
-``velo_tpu/solve/lm.py``).
+"""Fixed-iteration Levenberg-Marquardt on SE(3) (port of
+``velo_tpu/solve/lm.py``): the 6-DoF ``lm_solve`` with its deferred-reject
+loops, and the 12-DoF ``lm_solve_ct`` over the pose and the sweep motion.
 
 A dense-normal-equations LM with Jacobi scaling and an accept/reject
 damping schedule, run as a fixed number of masked iterations: every
@@ -44,23 +44,29 @@ def _keep_projector(H0: torch.Tensor, cfg) -> torch.Tensor | None:
     return torch.block_diag(P_blk[0], P_blk[1])
 
 
-def _damped_step(H, g, lam, P_keep):
-    """The LM step from one linearization: (delta (6,), bad)."""
-    eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
-    # Jacobi scaling: solve in units of sqrt(diag(H)).
+def _jacobi_solve(H, g, damp):
+    """Solve (damped H) delta = -g in units of sqrt(diag(H)) (Jacobi
+    scaling): ``damp(Hs, eye)`` adds the damping to the scaled H.  Returns
+    (delta, bad) with ``bad`` set where the factorization failed."""
+    eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
     D = fp.sqrt(torch.diagonal(H) + 1e-8)
     Hs = H / (D[:, None] * D[None, :])
     gs = g / D
-    A = Hs + lam * eye6 + 1e-7 * eye6
     # cholesky_ex reports a non-PD matrix in `info` instead of raising
     # (and without a host sync); that step is then rejected.  Solved in
     # float64 so that CPU and GPU libraries round the step alike.
-    L, info = torch.linalg.cholesky_ex(A.to(fp.F64))
+    L, info = torch.linalg.cholesky_ex(damp(Hs, eye).to(fp.F64))
     delta = torch.cholesky_solve(-gs.to(fp.F64)[:, None], L)[:, 0]
-    delta = delta.to(D.dtype) / D
+    return delta.to(D.dtype) / D, info != 0
+
+
+def _damped_step(H, g, lam, P_keep):
+    """The LM step from one linearization: (delta (6,), bad)."""
+    delta, bad = _jacobi_solve(
+        H, g, lambda Hs, eye: Hs + lam * eye + 1e-7 * eye)
     if P_keep is not None:
         delta = fp.matmul(P_keep, delta[:, None])[:, 0]
-    bad = (info != 0) | ~torch.all(torch.isfinite(delta))
+    bad = bad | ~torch.all(torch.isfinite(delta))
     return torch.where(bad, 0.0, delta), bad
 
 
@@ -200,3 +206,67 @@ def _lm_solve_deferred_tail(stage, T0, cfg, iters: int):
                                   for a, b in zip(basis_t, basis)))
         st = _advance(st, cfg, accept, T_try, cost_try, st.cost, delta)
     return st.T, st
+
+
+class LMStateCT(NamedTuple):
+    T: torch.Tensor  # (4,4)
+    xi2: torch.Tensor  # (6,) sweep-motion estimate
+    lam: torch.Tensor
+    cost: torch.Tensor
+    converged: torch.Tensor
+    n_accept: torch.Tensor  # int32 accepted steps
+
+
+def lm_solve_ct(build_system: Callable | None, T0: torch.Tensor,
+                xi2_0: torch.Tensor, cfg, iters: int | None = None,
+                stage: Callable | None = None):
+    """12-DoF LM over (pose, sweep motion), the continuous-time solve;
+    returns (T_opt, xi2_opt, LMStateCT).
+
+    ``build_system(T, xi2) -> (H (12,12), g (12,), cost)``, or ``stage(T,
+    xi2, basis)`` as in :func:`lm_solve`.  The retraction is ``T <-
+    exp(delta[:6]) T`` and ``xi2 <- xi2 + delta[6:]``.  No degeneracy
+    projector, as in the reference.
+    """
+    iters = cfg.lm_iters if iters is None else iters
+    dev, dt = T0.device, T0.dtype
+
+    def cost_only(T, xi2):
+        return build_system(T, xi2)[2]
+
+    st = LMStateCT(
+        T=T0, xi2=xi2_0,
+        lam=torch.tensor(cfg.lm_lambda_init, dtype=dt, device=dev),
+        cost=(torch.tensor(torch.inf, dtype=dt, device=dev)
+              if stage is not None else cost_only(T0, xi2_0)),
+        converged=torch.zeros((), dtype=torch.bool, device=dev),
+        n_accept=torch.zeros((), dtype=torch.int32, device=dev))
+    basis = None
+    for i in range(iters):
+        if stage is not None:
+            reuse = basis if i >= cfg.prior_obs_stage_iters else None
+            H, g, cost, trial_cost, basis = stage(st.T, st.xi2, reuse)
+        else:
+            H, g, cost = build_system(st.T, st.xi2)
+            trial_cost = cost_only
+        lam = st.lam
+        delta, bad = _jacobi_solve(
+            H, g, lambda Hs, eye: Hs + (lam + 1e-7) * eye)
+        bad = bad | ~torch.all(torch.isfinite(delta))
+        delta = torch.where(bad, 0.0, delta)
+        T_try = se3.compose(se3.exp(delta[:6]), st.T)
+        xi2_try = st.xi2 + delta[6:]
+        cost_try = trial_cost(T_try, xi2_try)
+        accept = (cost_try < cost) & ~bad & ~st.converged
+        lam_new = torch.where(accept, st.lam * cfg.lm_lambda_down,
+                              st.lam * cfg.lm_lambda_up)
+        step = fp.norm(delta)
+        st = LMStateCT(
+            T=torch.where(accept, T_try, st.T),
+            xi2=torch.where(accept, xi2_try, st.xi2),
+            lam=torch.where(st.converged, st.lam,
+                            torch.clamp(lam_new, 1e-9, 1e6)),
+            cost=torch.where(accept, cost_try, cost),
+            converged=st.converged | (accept & (step < cfg.converge_tol)),
+            n_accept=st.n_accept + accept.to(torch.int32))
+    return st.T, st.xi2, st
