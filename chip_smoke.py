@@ -24,11 +24,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    then edge cases of both, bitwise too: fewer than k live bins,
    duplicated targets, Q = 1000; NaN, border and textureless tracks;
 5. fused pipeline: the 4 frames through ``pipeline.odometry.run_sequence``
-   at the bench's fused configuration with ``klt_impl="pallas"``; it must
-   launch ``klt_l0`` 2 and ``dist_topk`` 4 times per frame, keep the whole
-   carry on the card, stay within the pose gates against ground truth,
-   agree with the port's own CPU run of the same frames, and a short
-   profile reads the card's busy share;
+   at the bench's fused configuration with ``klt_impl="pallas"``; on the
+   card each frame is one replay of a CUDA graph of the step, one graph per
+   cadence key, captured afresh for each cell (a wrapper counts its calls:
+   each graph's eager warm-up and its capture, ``_graph_calls``); a
+   profile of 2 replayed frames must see ``klt_l0`` 2 and ``dist_topk`` 4
+   times per frame; the carry stays on the card, the poses within the
+   gates against ground truth, equal to the port's own CPU run of the same
+   frames, and the profile reads the card's busy share;
 6. the same fused run with the shipped ``klt_impl="auto"`` (level 0 on the
    gather sampler, no ``klt_l0`` launch): ground truth, frames/s and
    profile beside the kernel's, to decide which should be the default;
@@ -37,12 +40,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
 7a. the solver variants that ``--set`` selects, each a cell on the same
    frames: ``ct-fused`` (``ct_sweep``, fused with ``klt_impl="pallas"``;
    4 ``dist_topk`` and 2 ``klt_l0`` launches per frame), ``exact-lag``
-   (``deskew_exact_lag``, LiDAR-only; 4 / 0) and ``hash`` (``nn_engine=
-   "hash"``, LiDAR-only; 0 / 0): ground truth (ct_sweep against the
-   reference's own error, ``GATE_GT_M_CT``), card against CPU on frames
-   0-1, warm frames/s;
-7b. stage split: ``profiling.StageTimer`` over the fused step's LiDAR and
-   visual front ends and the whole step, ms per frame;
+   (``deskew_exact_lag``, LiDAR-only; 4 / 0), ``hash`` (``nn_engine=
+   "hash"``, LiDAR-only; 0 / 0), ``klt-matmul`` and ``klt-window`` (fused,
+   the selection-matmul and local-window KLT; 4 / 0) and ``nn-xla``
+   (LiDAR-only, the exact search of ``nn_approx_impl="xla"``; 0 / 0):
+   ground truth (ct_sweep against the reference's own error,
+   ``GATE_GT_M_CT``), card against CPU on frames 0-1, warm frames/s;
+7b. run-scan, this slice's path: ``odometry.run_scan`` fused and
+   LiDAR-only on the same frames, bitwise against the eager ``step`` loop
+   on the card and against the CPU runs of 5 and 7; launches per replayed
+   frame from a profile; graphs captured and their seconds; warm frames/s,
+   host ms per frame and the card's busy share, captured beside eager;
+7c. stage split: ``profiling.StageTimer`` over the fused step's LiDAR and
+   visual front ends and the whole (eager) step, ms per frame;
 8. export: ``io.fake_kitti.export`` writes 4 full-scale frames (HDL-64E
    beam table, sweep start at the rear) as a KITTI sequence directory; the
    scans and PNGs read back equal to what was written;
@@ -69,23 +79,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
     --rings 64 --azimuth 2048`` in process, fused with ``--set
     v:klt_impl=pallas`` and ``--no-vision`` (seeds 100-103, the batch
     mode's 128 x 384 images; the drives are simulated in worker processes
-    while the phases above run): 16 ``dist_topk`` and 8 ``klt_l0`` launches
-    per run whatever B, each sequence within the ground-truth gates, the
-    library's ``run_sequences`` on the same inputs byte-equal to the pose
-    files and, sequence by sequence, bitwise equal to single-sequence
-    ``run_sequence`` runs on the card (else the first differing frame and
-    field, and 5 cm / 0.1 deg), sequence 0 to the CPU; ``--shard`` on the
-    one card byte-equal to the unsharded run;
+    while the phases above run): wrapper calls per frame and graph as
+    the single step's whatever B, each sequence within the ground-truth
+    gates, the library's ``run_sequences`` (``batched_run_scan``) on the
+    same inputs byte-equal to the pose files and, sequence by sequence,
+    bitwise equal to single-sequence ``run_sequence`` runs on the card
+    (else it fails, naming the first differing frame and field), sequence
+    0 to the CPU; ``--shard`` on the one card byte-equal to the unsharded
+    run;
 11a. batch variants: each solver variant through ``--batch 2`` with
     functorch's per-sample fallback off: launches per frame as single,
     ground truth, each sequence against its single-sequence card run;
+11b. distributed: ``pipeline.distributed.run_sequences_multihost`` in two
+    processes joined by gloo over loopback, both on this card, 2 LiDAR
+    sequences x 3 frames each (the batch phase's drives): each rank's poses
+    byte-equal to a single-process ``batch.run_sequences`` of its
+    sequences, the global cost the mean over all 4;
 12. batched kernels: both under ``torch.func.vmap`` at B = 4 and 8 (inputs
     batched, and shared at batch stride 0): one launch per call, each
     sequence bitwise equal to its unbatched launch and to the plain
     version, with wrapper, kernel-alone, plain, library and bound times;
-13. batch throughput: ``run_sequences`` at B = 1, 2, 4, 8 (aggregate
-    frames/s); at B = 1 and 8 the host's time per step call and a profile
-    of one step (busy share, card kernels); the plain step's host time.
+13. batch throughput: ``run_sequences`` (``batched_run_scan``, one graph
+    replay per batched frame) at B = 1, 2, 4, 8, warm (aggregate frames/s);
+    at B = 1 and 8 the host's time per step call and a profile of one step
+    (busy share, card kernels), eager and captured; the plain step's host
+    time.
 
 Each phase prints its seconds, and the pipeline line carries them.
 
@@ -138,13 +156,21 @@ GATE_GT_M = 0.25  # full-scale pose error vs ground truth (m)
 # error plus about the end-to-end parity tolerance of 5 cm.
 GATE_GT_M_CT = 0.50
 GATE_GT_DEG = {"lidar": 1.0, "fused": 1.5, "fused-gather": 1.5,
-               "ct-fused": 1.5, "exact-lag": 1.0, "hash": 1.0}  # (deg)
+               "ct-fused": 1.5, "exact-lag": 1.0, "hash": 1.0,
+               "klt-matmul": 1.5, "klt-window": 1.5, "nn-xla": 1.0}  # (deg)
 # The solver variants that --set selects, each a cell of its own at the
 # fixture's full width: (fused, --set, dist_topk and klt_l0 launches per
 # frame).  The hash engine bypasses dist_topk in both solves.
 VARIANTS = {"ct-fused": (True, "s:ct_sweep=1", 4, 2),
             "exact-lag": (False, "s:deskew_exact_lag=1", 4, 0),
-            "hash": (False, "s:nn_engine=hash", 0, 0)}
+            "hash": (False, "s:nn_engine=hash", 0, 0),
+            # The reference's other samplers and its XLA top-k:
+            # selection-matmul and local-window KLT (no klt_l0: the whole
+            # pyramid samples by products), and the exact search in place
+            # of dist_topk.
+            "klt-matmul": (True, "v:klt_impl=matmul", 4, 0),
+            "klt-window": (True, "v:klt_impl=window", 4, 0),
+            "nn-xla": (False, "s:nn_approx_impl=xla", 0, 0)}
 VARIANT_CPU_FRAMES = 2  # card against CPU on frames 0-1
 GATE_CPU_M, GATE_CPU_DEG = 0.05, 0.1  # card vs the port's own CPU run
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM rate, float32 outside
@@ -578,11 +604,14 @@ def _carry_leaves(carry):
 
 def _device_time(prof):
     """(summed card kernel seconds, kernel count, seconds of each of the
-    port's two kernels) of a torch.profiler run, read from the raw Kineto
-    events: ``prof.events()`` would first build a Python object for each
-    of the ~0.5 million events of a profiled step, which took a minute a
-    frame on the card's host."""
-    busy, n, own = 0.0, 0, {"klt_l0": 0.0, "dist_topk": 0.0}
+    port's two kernels, launches of each) of a torch.profiler run, read
+    from the raw Kineto events: ``prof.events()`` would first build a
+    Python object for each of the ~0.5 million events of a profiled step,
+    which took a minute a frame on the card's host.  The profiler sees the
+    kernels inside a replayed CUDA graph one by one."""
+    busy, n = 0.0, 0
+    own = {"klt_l0": 0.0, "dist_topk": 0.0}
+    count = {"klt_l0": 0, "dist_topk": 0}
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() == torch.autograd.DeviceType.CUDA:
             dt = ev.duration_ns() * 1e-9
@@ -591,27 +620,36 @@ def _device_time(prof):
             for key in own:
                 if key in ev.name():
                     own[key] += dt
-    return busy, n, own
+                    count[key] += 1
+    return busy, n, own, count
 
 
-def _profile(frames, cfg, carry, cam) -> dict:
-    """torch.profiler over 2 frames from a warm carry: wall time, summed
-    card kernel time, kernel count, and the two port kernels' shares."""
+def _profile_calls(fn) -> dict:
+    """torch.profiler over ``fn()``: wall, card kernel time and count, busy
+    share, and the two port kernels' seconds and launches (also inside
+    replayed graphs)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from velo_tpu_torch.pipeline import odometry
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        odometry.run_sequence(frames, cfg, carry=carry, cam=cam)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, n, own = _device_time(prof)
-    return {"frames": len(frames), "wall_s": wall, "device_s": busy,
-            "kernels": n, "busy_share": busy / wall,
-            "klt_l0_s": own["klt_l0"], "dist_topk_s": own["dist_topk"]}
+    busy, n, own, count = _device_time(prof)
+    return {"wall_s": wall, "device_s": busy, "kernels": n,
+            "busy_share": busy / wall, "klt_l0_s": own["klt_l0"],
+            "dist_topk_s": own["dist_topk"], "launches": count}
+
+
+def _profile(frames, cfg, carry, cam) -> dict:
+    """:func:`_profile_calls` over ``run_sequence`` of 2 frames from a warm
+    carry."""
+    from velo_tpu_torch.pipeline import odometry
+
+    return {"frames": len(frames), **_profile_calls(
+        lambda: odometry.run_sequence(frames, cfg, carry=carry, cam=cam))}
 
 
 def _gate_m(mode) -> float:
@@ -641,11 +679,13 @@ def pipeline_run(dev, mode, fx, grids) -> dict:
     """One cell (see :func:`_cell_config`): launches, ground truth, card
     against CPU (all frames; frames 0-1 for a variant; none for
     fused-gather), warm frames/s and, for the two fused cells, a
-    profile."""
+    profile.  On the card ``run_sequence`` replays the step from CUDA
+    graphs, captured afresh for the cell.  Returns (result, the CPU run's
+    poses or None)."""
     from velo_tpu_torch.geom import camera
     from velo_tpu_torch.kernels.dist_topk import dist_topk
     from velo_tpu_torch.kernels.klt_l0 import track_level0
-    from velo_tpu_torch.pipeline import odometry
+    from velo_tpu_torch.pipeline import graphs, odometry
 
     cfg, fused = _cell_config(mode)
     frames = ([g + (img,) for g, img in zip(grids, fx.images)] if fused
@@ -653,6 +693,7 @@ def pipeline_run(dev, mode, fx, grids) -> dict:
     cam = (camera.from_numpy(fx.P, fx.T_cam_velo, IMG_W, IMG_H, dev)
            if fused else None)
 
+    graphs.release()
     dist_topk.launches = 0
     track_level0.launches = 0
     poses, diags, carry = odometry.run_sequence(frames, cfg, device=dev,
@@ -660,15 +701,10 @@ def pipeline_run(dev, mode, fx, grids) -> dict:
     torch.cuda.synchronize()
     launches = {"dist_topk": dist_topk.launches,
                 "klt_l0": track_level0.launches}
-    if mode in VARIANTS:
-        expect = {"dist_topk": VARIANTS[mode][2] * N_FRAMES,
-                  "klt_l0": VARIANTS[mode][3] * N_FRAMES}
-    else:
-        expect = {"dist_topk": 4 * N_FRAMES,
-                  "klt_l0": 2 * N_FRAMES if mode == "fused" else 0}
-    if launches != expect:
-        raise AssertionError(f"{mode}: launches {launches}, expected "
-                             f"{expect}")
+    per_frame = ((VARIANTS[mode][2], VARIANTS[mode][3]) if mode in VARIANTS
+                 else (4, 2 if mode == "fused" else 0))
+    _expect_launches(mode, launches, *per_frame)
+    captures = [c._asdict() for c in graphs.captures()]
     if not all(x.is_cuda for x in _carry_leaves(carry)):
         raise AssertionError(f"{mode}: carry left the card")
     if not np.all(np.isfinite(poses)) or poses.shape != (N_FRAMES, 4, 4):
@@ -686,9 +722,10 @@ def pipeline_run(dev, mode, fx, grids) -> dict:
                              "gate")
 
     n_cpu = VARIANT_CPU_FRAMES if mode in VARIANTS else N_FRAMES
-    cpu = _cpu_compare(mode, frames[:n_cpu], cfg, cam, poses[:n_cpu],
-                       {k: v[:n_cpu] for k, v in diags.items()}) \
-        if mode != "fused-gather" else {}
+    cpu, cpu_poses = _cpu_compare(
+        mode, frames[:n_cpu], cfg, cam, poses[:n_cpu],
+        {k: v[:n_cpu] for k, v in diags.items()}) \
+        if mode != "fused-gather" else ({}, None)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -700,9 +737,153 @@ def pipeline_run(dev, mode, fx, grids) -> dict:
             if mode in ("fused", "fused-gather") else None)
     if prof is not None:
         print(f"{mode}: profile of 2 warm frames: {prof}", flush=True)
-    return {"mode": mode, "launches": launches, "fps": fps,
-            "gt_err_m": float(gt_t.max()), "gt_err_deg": float(gt_r.max()),
-            **cpu, "n_depth": diags["n_depth"].tolist(), "profile": prof}
+        replayed = {k: v / 2 for k, v in prof["launches"].items()}
+        if replayed != {"dist_topk": per_frame[0], "klt_l0": per_frame[1]}:
+            raise AssertionError(f"{mode}: launches per replayed frame "
+                                 f"{replayed}")
+    graphs.release()
+    return {"mode": mode, "launches": launches, "captures": captures,
+            "fps": fps, "gt_err_m": float(gt_t.max()),
+            "gt_err_deg": float(gt_r.max()), **cpu,
+            "n_depth": diags["n_depth"].tolist(), "profile": prof}, cpu_poses
+
+
+def _step_through(step, carry, frames):
+    """Run ``step`` over ``frames`` (tensors on the card) -> (host seconds
+    of each step call, the carry entering each frame, the final carry,
+    the wall seconds to the last frame's end).  A call's host time is its
+    enqueue time: the loop never waits for the card."""
+    host, carries = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fr in frames:
+        carries.append(carry)
+        h0 = time.perf_counter()
+        carry, _ = step(carry, *fr)
+        host.append(time.perf_counter() - h0)
+    torch.cuda.synchronize()
+    return host, carries, carry, time.perf_counter() - t0
+
+
+def _timed_frames(step, carry, frames) -> dict:
+    """:func:`_step_through` as frames/s, wall, the host's mean ms per
+    call and the final carry."""
+    host, _, carry, wall = _step_through(step, carry, frames)
+    return {"fps": len(frames) / wall, "wall_s": wall,
+            "host_ms_per_frame": 1e3 * float(np.mean(host)), "carry": carry}
+
+
+def run_scan_phase(dev, fx, grids, cpu_poses, smi) -> dict:
+    """This slice's path, ``odometry.run_scan`` (one CUDA-graph replay per
+    frame), fused (``klt_l0`` at level 0) and LiDAR-only at full width:
+    bitwise against the eager ``step`` loop on the card and against the
+    CPU run of the cells above; wrapper calls (each graph's warm-up and
+    capture) and the launches inside the replays (profiler, per frame);
+    graphs captured and their seconds; warm frames/s, host ms per frame and
+    busy share, captured beside eager."""
+    from velo_tpu_torch.geom import camera
+    from velo_tpu_torch.kernels.dist_topk import dist_topk
+    from velo_tpu_torch.kernels.klt_l0 import track_level0
+    from velo_tpu_torch.pipeline import graphs, odometry
+
+    out = {}
+    for mode in ("fused", "lidar"):
+        cfg, fused = _cell_config(mode)
+        per_frame = (4, 2 if fused else 0)
+        cam = (camera.from_numpy(fx.P, fx.T_cam_velo, IMG_W, IMG_H, dev)
+               if fused else None)
+        scans = torch.as_tensor(np.stack([g[0] for g in grids])).to(dev)
+        masks = torch.as_tensor(np.stack([g[1] for g in grids])).to(dev)
+        images = (torch.as_tensor(np.stack(fx.images)).to(dev) if fused
+                  else None)
+        frames = [(scans[f], masks[f], None if images is None
+                   else images[f]) for f in range(N_FRAMES)]
+
+        def eager(carry, scan, mask, image):
+            return odometry.step(carry, scan, mask, cfg, image=image,
+                                 cam=cam)
+
+        def captured(carry, scan, mask, image):
+            return odometry.jit_step(carry, scan, mask, cfg, image=image,
+                                     cam=cam)
+
+        # The eager loop (warm: the cells above ran its warm-ups), timed,
+        # its results kept; then a profile.
+        outs = []
+
+        def kept(carry, *fr):
+            carry, o = eager(carry, *fr)
+            outs.append(o)
+            return carry, o
+
+        eager_t = _timed_frames(kept, odometry.init_carry(cfg, dev), frames)
+        carry = eager_t.pop("carry")
+        ref = odometry.stack_results(outs)
+        eager_p = _profile_calls(lambda: _timed_frames(
+            eager, odometry.init_carry(cfg, dev), frames[:2]))
+        # The profiler slows the host: the card's share of an unprofiled
+        # warm frame is its kernel time per frame over that frame's wall.
+        for t, p in ((eager_t, eager_p),):
+            t["busy_share_warm"] = p["device_s"] / 2 * t["fps"]
+
+        # The captured run, from nothing captured.
+        graphs.release()
+        dist_topk.launches = 0
+        track_level0.launches = 0
+        t0 = time.perf_counter()
+        final, res = odometry.run_scan(odometry.init_carry(cfg, dev), scans,
+                                       masks, cfg, images=images, cam=cam)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {"dist_topk": dist_topk.launches,
+                    "klt_l0": track_level0.launches}
+        _expect_launches(f"run-scan {mode}", launches, *per_frame)
+        captures = [c._asdict() for c in graphs.captures()]
+        differ = [k for k in res._fields
+                  if not torch.equal(getattr(res, k), getattr(ref, k))]
+        if differ:
+            raise AssertionError(f"run-scan {mode}: captured and eager "
+                                 f"differ in {differ}")
+        if not torch.equal(final.T_w, carry.T_w) or not torch.equal(
+                final.edge_map.pts, carry.edge_map.pts):
+            raise AssertionError(f"run-scan {mode}: final carries differ")
+        n_cpu = len(cpu_poses[mode])
+        if not np.array_equal(res.T_w.cpu().numpy()[:n_cpu],
+                              cpu_poses[mode]):
+            raise AssertionError(f"run-scan {mode}: not the CPU run's poses")
+        graph_t = _timed_frames(captured, odometry.init_carry(cfg, dev),
+                                frames)
+        del graph_t["carry"]
+        graph_p = _profile_calls(lambda: _timed_frames(
+            captured, odometry.init_carry(cfg, dev), frames[:2]))
+        graph_t["busy_share_warm"] = graph_p["device_s"] / 2 * graph_t["fps"]
+        replayed = {k: v / 2 for k, v in graph_p["launches"].items()}
+        if replayed != {"dist_topk": per_frame[0], "klt_l0": per_frame[1]}:
+            raise AssertionError(f"run-scan {mode}: launches per replayed "
+                                 f"frame {replayed}")
+        graphs.release()
+        out[mode] = {
+            "launches": launches, "launches_per_replayed_frame": replayed,
+            "bitwise_vs_eager": True, "bitwise_vs_cpu_frames": n_cpu,
+            "captures": captures, "first_run_s": first_s,
+            "captured": {**graph_t, "profile_2_frames": graph_p},
+            "eager": {**eager_t, "profile_2_frames": eager_p}}
+        print(f"run-scan {mode}: {len(captures)} graphs captured "
+              f"({[round(c['warm_s'] + c['capture_s'], 2) for c in captures]}"
+              f" s with warm-up), bitwise equal to the eager loop and to the "
+              f"CPU on frames 0-{n_cpu - 1}; wrapper calls {launches}, "
+              f"launches per replayed frame {replayed}; warm "
+              f"{graph_t['fps']:.3f} against eager {eager_t['fps']:.3f} "
+              f"frames/s, host {graph_t['host_ms_per_frame']:.2f} against "
+              f"{eager_t['host_ms_per_frame']:.2f} ms per frame, busy "
+              f"{graph_t['busy_share_warm']:.4f} against "
+              f"{eager_t['busy_share_warm']:.4f} of a warm frame "
+              f"({graph_p['busy_share']:.4f} against "
+              f"{eager_p['busy_share']:.4f} under the profiler), card "
+              f"{graph_p['device_s'] / 2:.4f} against "
+              f"{eager_p['device_s'] / 2:.4f} s per frame, on {smi}",
+              flush=True)
+    return out
 
 
 def stage_split(dev, fx, grids, smi) -> dict:
@@ -773,7 +954,8 @@ def _cpu_compare(mode, frames, cfg, cam, poses, diags) -> dict:
     if cpu_t.max() > GATE_CPU_M or cpu_r.max() > GATE_CPU_DEG:
         raise AssertionError(f"{mode}: card and CPU poses disagree")
     return {"cpu_diff_m": float(cpu_t.max()),
-            "cpu_diff_deg": float(cpu_r.max()), "cpu_bitwise": bitwise}
+            "cpu_diff_deg": float(cpu_r.max()),
+            "cpu_bitwise": bitwise}, cpu_poses
 
 
 def _cli(argv, device=None):
@@ -784,7 +966,10 @@ def _cli(argv, device=None):
     from velo_tpu_torch.kernels.dist_topk import dist_topk
     from velo_tpu_torch.kernels.klt_l0 import track_level0
 
+    from velo_tpu_torch.pipeline import graphs
+
     out, err = io.StringIO(), io.StringIO()
+    graphs.release()  # this run captures its own graphs
     dist_topk.launches = 0
     track_level0.launches = 0
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -801,9 +986,24 @@ def _cli(argv, device=None):
         err.getvalue(), launches
 
 
-def _expect_launches(what, launches, dist_topk, klt_l0):
-    expect = {"dist_topk": dist_topk, "klt_l0": klt_l0}
-    if launches != expect:
+def _graph_calls(dist_per_frame, klt_per_frame, eager_dist=0) -> dict:
+    """The wrapper calls a run on the card makes since the last
+    ``graphs.release()``: each CUDA graph it captured runs the step once
+    eagerly (its warm-up) and once under capture, and a replay calls no
+    wrapper; ``eager_dist`` adds eager calls outside the graphs (the
+    smoother's).  The launches inside the replays are counted from a
+    profile (:func:`_device_time`)."""
+    from velo_tpu_torch.pipeline import graphs
+
+    n = 2 * len(graphs.captures())
+    return {"dist_topk": dist_per_frame * n + eager_dist,
+            "klt_l0": klt_per_frame * n}
+
+
+def _expect_launches(what, launches, dist_per_frame, klt_per_frame,
+                     eager_dist=0):
+    expect = _graph_calls(dist_per_frame, klt_per_frame, eager_dist)
+    if launches != expect or (dist_per_frame and not launches["dist_topk"]):
         raise AssertionError(f"{what}: launches {launches}, expected "
                              f"{expect}")
 
@@ -876,7 +1076,7 @@ def cli_kitti(dev, tmp, root, smi) -> dict:
     from velo_tpu_torch.io import kitti, native_loader
     from velo_tpu_torch.kernels.dist_topk import dist_topk
     from velo_tpu_torch.kernels.klt_l0 import track_level0
-    from velo_tpu_torch.pipeline import checkpoint, odometry, smoother
+    from velo_tpu_torch.pipeline import checkpoint, graphs, odometry, smoother
 
     def path(*parts):
         return os.path.join(tmp, *parts)
@@ -889,9 +1089,8 @@ def cli_kitti(dev, tmp, root, smi) -> dict:
     res, err, launches = _cli(
         base + ["--frames", str(N_FRAMES), "--out", path("smooth"),
                 "--checkpoint", path("ck.npz"), "--smooth"] + every)
-    _expect_launches("cli-kitti", launches,
-                     4 * N_FRAMES + 2 * N_FRAMES * SMOOTH_PASSES,
-                     2 * N_FRAMES)
+    _expect_launches("cli-kitti", launches, 4, 2,
+                     eager_dist=2 * N_FRAMES * SMOOTH_PASSES)
     # The native prefetch loader read the scans, binning them in its
     # workers; not the Python fallback.
     if "scan reader: native-binned\n" not in err:
@@ -911,14 +1110,13 @@ def cli_kitti(dev, tmp, root, smi) -> dict:
     half = N_FRAMES // 2
     _, _, n_half = _cli(base + ["--frames", str(half), "--out", path("half"),
                                 "--checkpoint", path("ck2.npz")] + every)
-    _expect_launches("cli-kitti, first half", n_half, 4 * half, 2 * half)
+    _expect_launches("cli-kitti, first half", n_half, 4, 2)
     if checkpoint.checkpoint_frame(path("ck2.npz")) != half:
         raise AssertionError("cli-kitti: no checkpoint at the interruption")
     res_r, _, n_res = _cli(
         base + ["--frames", str(N_FRAMES), "--out", path("resumed"),
                 "--checkpoint", path("ck2.npz"), "--resume"] + every)
-    _expect_launches("cli-kitti, resumed", n_res, 4 * (N_FRAMES - half),
-                     2 * (N_FRAMES - half))
+    _expect_launches("cli-kitti, resumed", n_res, 4, 2)
     resumed = checkpoint.load_history(path("ck2.npz"))
     if sorted(resumed) != sorted(full) or not all(
             np.array_equal(resumed[k], full[k]) for k in full):
@@ -971,9 +1169,10 @@ def cli_kitti(dev, tmp, root, smi) -> dict:
         torch.cuda.synchronize()
         pass_s.append(time.perf_counter() - t0)
         per_pass.append(poses)
+    graphs.release()  # the smoother's passes run eagerly
     _expect_launches("smoother", {"dist_topk": dist_topk.launches,
-                                  "klt_l0": track_level0.launches},
-                     2 * N_FRAMES * SMOOTH_PASSES, 0)
+                                  "klt_l0": track_level0.launches}, 0, 0,
+                     eager_dist=2 * N_FRAMES * SMOOTH_PASSES)
     # The gauge fix re-bases every pose on frame 0: float32 rounding apart,
     # it stays where the forward pass put it.
     if not np.allclose(poses[0], full["poses"][0], atol=1e-5):
@@ -1040,7 +1239,7 @@ def cli_variants(tmp) -> dict:
                         ("no-prebin", ["--no-prebin"])):
         res, _, launches = _cli(base + flags + [
             "--out", os.path.join(tmp, "v-" + name)])
-        _expect_launches(f"cli {name}", launches, 4 * n, 0)
+        _expect_launches(f"cli {name}", launches, 4, 0)
         p = kitti.read_poses(os.path.join(tmp, "v-" + name, "synthetic.txt"))
         if p.shape != (n, 4, 4) or not np.isfinite(p).all():
             raise AssertionError(f"cli {name}: bad pose file {p.shape}")
@@ -1263,8 +1462,8 @@ def batch_cli(dev, tmp, smi) -> dict:
             argv + ["--out", os.path.join(tmp, "b-" + mode)])
         # Kernel launches per step do not depend on B: one batched launch
         # per call site (a loop over sequences would launch B times).
-        _expect_launches(f"batch {mode}", launches, 4 * BATCH_FRAMES,
-                         2 * BATCH_FRAMES if mode == "fused" else 0)
+        _expect_launches(f"batch {mode}", launches, 4,
+                         2 if mode == "fused" else 0)
         if (res["batch"], res["frames"], res["sharded"], res["prebin"],
                 len(res["sequences"])) != (BATCH, BATCH_FRAMES, False, True,
                                            BATCH):
@@ -1309,6 +1508,9 @@ def batch_cli(dev, tmp, smi) -> dict:
                 f"batch {mode} sequence {b} vs its single-sequence run on "
                 "the card", poses[b], p1,
                 {k: v[b] for k, v in diag.items()}, d1))
+        if not all(r["bitwise"] for r in single):
+            raise AssertionError(f"batch {mode}: a sequence is not byte-equal "
+                                 "to its single run")
         t0 = time.perf_counter()
         pc, dc, _ = odometry.run_sequence(_sequence_frames(bi, 0), bi.cfg,
                                           cam=bi.cam, device="cpu")
@@ -1322,7 +1524,7 @@ def batch_cli(dev, tmp, smi) -> dict:
     # --shard on one card: the batch is one chunk, the unsharded result.
     argv = BATCH_ARGV + BATCH_MODES["lidar"] + ["--shard"]
     res, _, launches = _cli(argv + ["--out", os.path.join(tmp, "b-shard")])
-    _expect_launches("batch --shard", launches, 4 * BATCH_FRAMES, 0)
+    _expect_launches("batch --shard", launches, 4, 0)
     for b in range(BATCH):
         with open(os.path.join(tmp, "b-shard", f"seq{b:02d}.txt"), "rb") as x, \
                 open(os.path.join(tmp, "b-lidar", f"seq{b:02d}.txt"),
@@ -1358,9 +1560,8 @@ def batch_variants(dev, tmp, smi) -> dict:
                     str(AZ)] + flags
             d = os.path.join(tmp, "bv-" + mode)
             res, _, launches = _cli(argv + ["--out", d])
-            _expect_launches(f"batch {mode}", launches,
-                             VARIANTS[mode][2] * BATCH_FRAMES,
-                             VARIANTS[mode][3] * BATCH_FRAMES)
+            _expect_launches(f"batch {mode}", launches, VARIANTS[mode][2],
+                             VARIANTS[mode][3])
             bi = cli.batch_inputs(cli.build_parser().parse_args(argv), dev)
             rows = []
             for b in range(2):
@@ -1546,37 +1747,15 @@ def batch_klt_l0(dev, bi) -> list:
     return rows
 
 
-def _step_through(step, carry, frames):
-    """Run ``step`` over ``frames`` (tensors on the card) -> (host seconds
-    of each step call, the carry entering each frame).  A call's host time
-    is its enqueue time: the loop never waits for the card."""
-    host, carries = [], []
-    torch.cuda.synchronize()
-    for fr in frames:
-        carries.append(carry)
-        h0 = time.perf_counter()
-        carry, _ = step(carry, *fr)
-        host.append(time.perf_counter() - h0)
-    torch.cuda.synchronize()
-    return host, carries
-
-
 def _profile_steps(step, carry, frames) -> dict:
-    """torch.profiler over ``frames`` from ``carry``: wall time, summed
-    card kernel time, kernel count, busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    """:func:`_profile_calls` over ``step`` through ``frames`` from
+    ``carry``."""
+    def run():
+        c = carry
         for fr in frames:
-            carry, _ = step(carry, *fr)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy, n, _ = _device_time(prof)
-    return {"frames": len(frames), "wall_s": wall, "device_s": busy,
-            "kernels": n, "busy_share": busy / wall}
+            c, _ = step(c, *fr)
+
+    return {"frames": len(frames), **_profile_calls(run)}
 
 
 def batch_throughput(dev, bi, smi) -> dict:
@@ -1585,24 +1764,11 @@ def batch_throughput(dev, bi, smi) -> dict:
     hand through ``batched_step`` at B = 1 and 8 and through the plain
     ``odometry.step`` (one sequence), the host's time per step call, and
     for the batched steps a profile of the last frame: busy share and card
-    kernels."""
-    from velo_tpu_torch.pipeline import batch, odometry
+    kernels; the batched steps eager and replayed from the CUDA graphs
+    that ``run_sequences`` captured."""
+    from velo_tpu_torch.pipeline import batch, graphs, odometry
 
     cfg = bi.cfg
-    rows = {}
-    for b in BATCH_SIZES:
-        sel = [s % BATCH for s in range(b)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        batch.run_sequences(bi.scans[sel], bi.masks[sel], cfg,
-                            images=bi.images[sel], cam=bi.cam,
-                            device=dev)
-        wall = time.perf_counter() - t0
-        rows[b] = {"batch": b, "agg_fps": b * BATCH_FRAMES / wall,
-                   "wall_ms_per_step": 1e3 * wall / BATCH_FRAMES}
-        print(f"batch throughput B={b}: {rows[b]['agg_fps']:.3f} frames/s "
-              f"in all, {rows[b]['wall_ms_per_step']:.1f} ms per batched "
-              f"step, on {smi}", flush=True)
 
     def put(x, sel):
         return torch.as_tensor(np.ascontiguousarray(x[sel])).to(dev)
@@ -1611,7 +1777,7 @@ def batch_throughput(dev, bi, smi) -> dict:
         """Host time of each step call; then a profile of the last step
         again, from the carry entering it (the profiler's own costs stay
         out of the host times)."""
-        host, carries = _step_through(step, carry, frames)
+        host, carries, _, _ = _step_through(step, carry, frames)
         prof = (_profile_steps(step, carries[-1], frames[-1:]) if profiled
                 else None)
         print(f"{name}: host {[round(1e3 * h, 1) for h in host]} ms per "
@@ -1620,14 +1786,46 @@ def batch_throughput(dev, bi, smi) -> dict:
         return {"host_ms_per_step": [1e3 * h for h in host],
                 "profile": prof}
 
+    def batch_frames(sel):
+        return [(put(bi.scans[:, f], sel), put(bi.masks[:, f], sel))
+                + ((put(bi.images[:, f], sel),) if cfg.use_vision else ())
+                for f in range(BATCH_FRAMES)]
+
+    rows = {}
+    for b in BATCH_SIZES:
+        sel = [s % BATCH for s in range(b)]
+        walls = []
+        graphs.release()
+        for _ in range(2):  # the first run captures the graphs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch.run_sequences(bi.scans[sel], bi.masks[sel], cfg,
+                                images=bi.images[sel], cam=bi.cam,
+                                device=dev)
+            walls.append(time.perf_counter() - t0)
+        wall = walls[1]
+        rows[b] = {"batch": b, "agg_fps": b * BATCH_FRAMES / wall,
+                   "wall_ms_per_step": 1e3 * wall / BATCH_FRAMES,
+                   "first_run_s": walls[0], "captures": [
+                       c._asdict() for c in graphs.captures()]}
+        print(f"batch throughput B={b}: {rows[b]['agg_fps']:.3f} frames/s "
+              f"in all, {rows[b]['wall_ms_per_step']:.1f} ms per batched "
+              f"step (warm; the run that captured took {walls[0]:.1f} s), "
+              f"on {smi}", flush=True)
+        if b in (1, 8):
+            # Stepped by hand through the graphs run_sequences captured.
+            rows[b]["captured"] = measure(
+                f"batch B={b} captured", batch.jit_batched_step(cfg, bi.cam),
+                batch.broadcast_carry(odometry.init_carry(cfg, dev), b),
+                batch_frames(sel))
+        graphs.release()
+
     for b in (1, 8):
         sel = [s % BATCH for s in range(b)]
-        frames = [(put(bi.scans[:, f], sel), put(bi.masks[:, f], sel))
-                  + ((put(bi.images[:, f], sel),) if cfg.use_vision else ())
-                  for f in range(BATCH_FRAMES)]
         rows[b].update(measure(
             f"batch B={b} stepped", batch.batched_step(cfg, bi.cam),
-            batch.broadcast_carry(odometry.init_carry(cfg, dev), b), frames))
+            batch.broadcast_carry(odometry.init_carry(cfg, dev), b),
+            batch_frames(sel)))
     frames = [tuple(torch.as_tensor(np.ascontiguousarray(x)).to(dev)
                     for x in fr) for fr in _sequence_frames(bi, 0)]
 
@@ -1640,6 +1838,100 @@ def batch_throughput(dev, bi, smi) -> dict:
     return rows
 
 
+DIST_WORKER = r"""
+import datetime, pickle, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+import torch.distributed as dist
+
+dist.init_process_group("gloo", init_method={init!r}, world_size=2,
+                        rank={rank}, timeout=datetime.timedelta(seconds=600))
+from velo_tpu_torch.pipeline import distributed
+
+with open({cfg_path!r}, "rb") as f:
+    cfg = pickle.load(f)
+data = np.load({inputs!r})
+mine = slice({rank} * {b_local}, ({rank} + 1) * {b_local})
+poses, diag, gcost = distributed.run_sequences_multihost(
+    data["scans"][mine], data["masks"][mine], cfg, with_global_cost=True,
+    device="cuda:0")
+np.savez({out!r}, poses=poses, gcost=gcost, cost=diag["cost"])
+dist.destroy_process_group()
+print("WORKER_OK", {rank}, flush=True)
+"""
+DIST_FRAMES, DIST_LOCAL = 3, 2
+
+
+def distributed_phase(dev, bi, tmp, smi) -> dict:
+    """``pipeline.distributed.run_sequences_multihost`` in two processes
+    (gloo over loopback, both on card 0), 2 LiDAR sequences of 3 frames
+    each at 64 x 2048 (the batch phase's drives, seeds 100-103): each
+    rank's poses byte-equal to a single-process ``batch.run_sequences``
+    of its sequences, and the global cost the mean over all 4."""
+    import pickle
+    import socket
+
+    from velo_tpu_torch.pipeline import batch, graphs
+
+    scans = bi.scans[:2 * DIST_LOCAL, :DIST_FRAMES]
+    masks = bi.masks[:2 * DIST_LOCAL, :DIST_FRAMES]
+    inputs = os.path.join(tmp, "dist-inputs.npz")
+    np.savez(inputs, scans=scans, masks=masks)
+    cfg_path = os.path.join(tmp, "dist-cfg.pkl")
+    with open(cfg_path, "wb") as f:
+        pickle.dump(bi.cfg, f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DIST_WORKER.format(
+            repo=repo, init=f"tcp://127.0.0.1:{port}", rank=rank,
+            cfg_path=cfg_path, inputs=inputs, b_local=DIST_LOCAL,
+            out=os.path.join(tmp, f"dist-rank{rank}.npz"))],
+        env=dict(os.environ, GLOO_SOCKET_IFNAME="lo"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"WORKER_OK {rank}" not in so:
+            raise AssertionError(f"distributed rank {rank} failed "
+                                 f"(rc {p.returncode}):\n{so}\n{se[-4000:]}")
+    costs, rows = [], []
+    for rank in range(2):
+        got = np.load(os.path.join(tmp, f"dist-rank{rank}.npz"))
+        mine = slice(rank * DIST_LOCAL, (rank + 1) * DIST_LOCAL)
+        graphs.release()
+        single, sdiag = batch.run_sequences(scans[mine], masks[mine], bi.cfg,
+                                            device=dev)
+        if got["poses"].tobytes() != single.tobytes():
+            raise AssertionError(f"distributed rank {rank}: poses differ "
+                                 "from the single-process run")
+        costs.append(sdiag["cost"])
+        rows.append(float(got["gcost"]))
+    graphs.release()
+    mean = float(np.mean(np.concatenate(costs).astype(np.float64)))
+    if any(abs(g - mean) > 1e-6 * abs(mean) for g in rows):
+        raise AssertionError(f"distributed: global cost {rows}, mean {mean}")
+    print(f"distributed: 2 processes x {DIST_LOCAL} sequences x "
+          f"{DIST_FRAMES} frames at {RINGS} x {AZ} on one card, gloo: each "
+          f"rank byte-equal to its single-process run; global cost "
+          f"{rows} = mean {mean} ({wall:.1f} s with process start-up) on "
+          f"{smi}", flush=True)
+    return {"ranks": 2, "sequences_per_rank": DIST_LOCAL,
+            "frames": DIST_FRAMES, "bytes_equal": True,
+            "global_cost": rows, "mean_cost": mean, "wall_s": wall}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = card_check()
@@ -1650,8 +1942,11 @@ def main() -> int:
     seconds = {}
 
     def phase(name, fn, *args):
+        from velo_tpu_torch.pipeline import graphs
+
         t0 = time.perf_counter()
         out = fn(*args)
+        graphs.release()  # each phase captures the graphs it needs
         seconds[name] = time.perf_counter() - t0
         print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
         return out
@@ -1661,8 +1956,12 @@ def main() -> int:
         fx, grids = phase("fixture", make_frames)
         dk = phase("dist_topk", dist_topk_check, dev)
         kk = phase("klt_l0", klt_l0_check, dev, fx)
-        runs = {mode: phase(mode, pipeline_run, dev, mode, fx, grids)
-                for mode in ("fused", "fused-gather", "lidar", *VARIANTS)}
+        runs, cpu_poses = {}, {}
+        for mode in ("fused", "fused-gather", "lidar", *VARIANTS):
+            runs[mode], cpu_poses[mode] = phase(mode, pipeline_run, dev,
+                                                mode, fx, grids)
+        runs["run-scan"] = phase("run-scan", run_scan_phase, dev, fx, grids,
+                                 cpu_poses, smi)
         runs["stage-split"] = phase("stage split", stage_split, dev, fx,
                                     grids, smi)
         for mode in ("fused", "fused-gather", "lidar", *VARIANTS):
@@ -1680,6 +1979,8 @@ def main() -> int:
             runs["batch"], inputs = phase("batch", batch_cli, dev, tmp, smi)
             runs["batch-variants"] = phase("batch variants", batch_variants,
                                            dev, tmp, smi)
+            runs["distributed"] = phase("distributed", distributed_phase,
+                                        dev, inputs["lidar"], tmp, smi)
         dk["per_shape"] += phase("batch dist_topk", batch_dist_topk, dev)
         kk["per_shape"] += phase("batch klt_l0", batch_klt_l0, dev,
                                  inputs["fused"])
@@ -1696,11 +1997,17 @@ def main() -> int:
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # This slice's path: the continuous-time sweep solve, fused.
-            "launches": runs["ct-fused"]["launches"][name],
+            # This slice's path: run_scan, fused, one graph replay per
+            # frame.  The wrapper counts its calls: each captured graph's
+            # warm-up and capture; the profile counts the launches inside
+            # the replays.
+            "launches": runs["run-scan"]["fused"]["launches"][name],
+            "launches_per_replayed_frame": runs["run-scan"]["fused"][
+                "launches_per_replayed_frame"][name],
             "launches_by_path": {
                 **{mode: runs[mode]["launches"][name] for mode in (
                     "fused", "lidar", *VARIANTS)},
+                "run-scan-lidar": runs["run-scan"]["lidar"]["launches"][name],
                 "batch": runs["batch"]["fused"]["launches"][name],
                 "batch-lidar": runs["batch"]["lidar"]["launches"][name],
                 "batch-shard": runs["batch"]["shard"]["launches"][name],

@@ -96,9 +96,16 @@ def test_checkpoint_and_resume(tmp_path, capsys):
 
 
 def test_refused_configs_fail_before_any_work(tmp_path):
+    """``nn_approx_impl=xla`` runs (one frame); an unknown value raises
+    ValueError before any work."""
+    ok = tmp_path / "xla"
+    argv = [a if a != "6" else "1" for a in SYNTH]  # --frames 1
+    assert tcli.main(argv + ["--set", "s:nn_approx_impl=xla", "--out",
+                             str(ok), "--device", "cpu"]) == 0
+    assert tkitti.read_poses(str(ok / "synthetic.txt")).shape == (1, 4, 4)
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcli.main(SYNTH + ["--set", "s:nn_approx_impl=xla", "--out",
+    with pytest.raises(ValueError, match="nn_approx_impl"):
+        tcli.main(SYNTH + ["--set", "s:nn_approx_impl=bogus", "--out",
                            str(out), "--device", "cpu"])
     assert not out.exists()
 

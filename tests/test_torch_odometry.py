@@ -336,19 +336,38 @@ def test_variant_eight_frames_end_to_end(frames, raw_scans,
     {"v:klt_impl": "window"},
     {"s:nn_approx_impl": "xla"},
 ])
-def test_configs_outside_the_slice_are_refused(frames, change):
+def test_configs_outside_the_slice_are_refused(frames, fused_frames, change):
+    """The reference's matmul and window samplers and its XLA top-k run
+    (two steps on the CPU, poses finite); an unknown value of the same
+    field raises ValueError before any work."""
     (key, value), = change.items()
-    if key.startswith("s:"):
-        cfg = dataclasses.replace(CFG, solver=dataclasses.replace(
-            CFG.solver, **{key[2:]: value}))
-    elif key.startswith("v:"):
-        cfg = dataclasses.replace(FUSED, vision=dataclasses.replace(
-            FUSED.vision, **{key[2:]: value}))
+
+    def with_value(v):
+        if key.startswith("s:"):
+            return dataclasses.replace(CFG, solver=dataclasses.replace(
+                CFG.solver, **{key[2:]: v}))
+        return dataclasses.replace(FUSED, vision=dataclasses.replace(
+            FUSED.vision, **{key[2:]: v}))
+
+    cfg = with_value(value)
+    if cfg.use_vision:
+        fr, P, T = fused_frames
+        cam = _tcam(P, T)
     else:
-        cfg = dataclasses.replace(CFG, **{key: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        todo.init_carry(cfg, device="cpu")
-    carry = todo.init_carry(CFG, device="cpu")
-    g, v = frames[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        todo.step(carry, torch.tensor(g), torch.tensor(v), cfg)
+        fr, cam = frames, None
+    carry = todo.init_carry(cfg, device="cpu")
+    for frame in fr[:2]:
+        img = torch.tensor(frame[2]) if cfg.use_vision else None
+        carry, out = todo.step(carry, torch.tensor(frame[0]),
+                               torch.tensor(frame[1]), cfg, image=img,
+                               cam=cam)
+        assert torch.isfinite(out.T_w).all()
+    assert carry.frame_host == 2
+
+    bogus = with_value("bogus")
+    with pytest.raises(ValueError, match="bogus"):
+        todo.init_carry(bogus, device="cpu")
+    with pytest.raises(ValueError, match="bogus"):
+        todo.step(carry, torch.tensor(fr[0][0]), torch.tensor(fr[0][1]),
+                  bogus, image=torch.tensor(fr[0][2]) if cfg.use_vision
+                  else None, cam=cam)

@@ -24,6 +24,12 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
+# The batched LM solves (the batch mode's vmapped step) factor and solve
+# through cuSOLVER, as the single ones do: PyTorch's default sends a
+# batched cholesky_solve to MAGMA, whose host-side pointer arrays a
+# CUDA-graph capture refuses.  The two give the same bits on this step.
+if _torch.backends.cuda.is_built():
+    _torch.backends.cuda.preferred_linalg_library("cusolver")
 
 from velo_tpu_torch import config  # noqa: E402,F401
 from velo_tpu_torch.evaluation import kitti_metric  # noqa: E402,F401

@@ -47,6 +47,22 @@ def div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
+def const(values, dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)`` for a flat
+    sequence of Python numbers, made on the device by one fill per run of
+    equal values: no host-to-device copy, so it captures into a CUDA graph.
+    Each value rounds to ``dtype`` as ``torch.tensor`` rounds it."""
+    values = [float(v) if dtype.is_floating_point else int(v)
+              for v in values]
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    start = 0
+    for i in range(1, len(values) + 1):
+        if i == len(values) or values[i] != values[start]:
+            out[start:i].fill_(values[start])
+            start = i
+    return out
+
+
 def arccos(x: torch.Tensor) -> torch.Tensor:
     return torch.arccos(x.to(F64)).to(x.dtype)
 

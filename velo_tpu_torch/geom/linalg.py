@@ -72,8 +72,8 @@ def sym_eig3x3(A: torch.Tensor):
             torch.where((n02 >= n12)[..., None], c02, c12),
         )
         nrm = fp.norm3(best)[..., None]
-        fallback = torch.tensor([1.0, 0.0, 0.0], dtype=A.dtype,
-                                device=A.device).expand(best.shape)
+        fallback = fp.const([1.0, 0.0, 0.0], A.dtype,
+                            A.device).expand(best.shape)
         return torch.where(nrm > 1e-12, best / torch.clamp(nrm, min=1e-12),
                            fallback)
 

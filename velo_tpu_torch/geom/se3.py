@@ -29,6 +29,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`: the 3-vector of a skew-symmetric matrix."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _sinc_coeffs(theta_sq: torch.Tensor):
     """A = sin(t)/t, B = (1-cos(t))/t^2, C = (t-sin(t))/t^3, safely."""
     theta = fp.sqrt(torch.clamp(theta_sq, min=1e-24))
@@ -156,8 +161,8 @@ def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (4,))[..., None, :]
+    bottom = fp.const([0.0, 0.0, 0.0, 1.0], R.dtype,
+                      R.device).expand(batch + (4,))[..., None, :]
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -186,6 +191,13 @@ def apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     R, t = to_rt(T)
     out = torch.matmul(pts.to(fp.F64), R.transpose(-1, -2).to(fp.F64))
     return (out + t[..., None, :].to(fp.F64)).to(pts.dtype)
+
+
+def apply_one(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply (…,4,4) transforms to (…,3) points, batch dims aligned."""
+    R, t = to_rt(T)
+    out = torch.matmul(R.to(fp.F64), p.to(fp.F64)[..., None])[..., 0]
+    return (out + t.to(fp.F64)).to(p.dtype)
 
 
 def interp(T: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

@@ -172,7 +172,8 @@ def _template(prev, uv_prev, uv_cur, h) -> _Template:
     gxy = _sum225(gx * gy)
     gyy = _sum225(gy * gy)
     det = gxx * gyy - gxy * gxy
-    det_min = torch.tensor(_DET_MIN, dtype=torch.float32, device=prev.device)
+    det_min = torch.full((), _DET_MIN, dtype=torch.float32,
+                         device=prev.device)
     safe_det = torch.where(det > det_min, det, 1.0)
     inv = (gyy / safe_det, -gxy / safe_det, gxx / safe_det)
     return _Template(tmpl, gx, gy, inv, t_in, t_in & (det > det_min), r0, c0,

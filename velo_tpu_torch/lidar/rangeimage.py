@@ -70,8 +70,7 @@ def build_range_image(pts: torch.Tensor, mask: torch.Tensor,
     elev = fp.arcsin(torch.clamp(pts[..., 2] / safe_rng, -1.0, 1.0))
     if cfg.ring_mode == "hdl64e":
         # Nearest beam of the nominal HDL-64E two-block elevation table.
-        beams = torch.tensor(hdl64e_beam_elevations(R), dtype=torch.float32,
-                             device=dev)
+        beams = fp.const(hdl64e_beam_elevations(R), torch.float32, dev)
         d = torch.abs(elev[:, None] - beams[None, :])  # (N, R)
         gap = torch.min(d, dim=1).values
         # The first beam at the least distance (torch.argmin promises no
@@ -82,8 +81,8 @@ def build_range_image(pts: torch.Tensor, mask: torch.Tensor,
         # Reject points falling between beams (noise / other sensors).
         ok = ok & (gap < _deg2rad32(0.6))
     else:
-        e_max = torch.tensor(_deg2rad32(cfg.elev_max_deg), device=dev)
-        e_min = torch.tensor(_deg2rad32(cfg.elev_min_deg), device=dev)
+        e_max = torch.full((), _deg2rad32(cfg.elev_max_deg), device=dev)
+        e_min = torch.full((), _deg2rad32(cfg.elev_min_deg), device=dev)
         ring_f = (e_max - elev) / (e_max - e_min) * (R - 1)
         ring = torch.clamp(torch.round(ring_f).to(torch.int32), 0, R - 1)
         # Reject points whose elevation is far outside the laser fan.

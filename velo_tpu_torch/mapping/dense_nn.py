@@ -3,9 +3,11 @@
 
 The approximate path (candidate preselection) goes through the fused
 ``kernels.dist_topk``, which never materializes the Q x N distance field.
-The exact path is one distance matmul plus a stable sort, kept for shapes
-the kernel does not take and for tests.  Distances are float32 throughout:
-a reduced-precision matmul mis-ranks centimetre-scale near-ties.
+The exact path is one distance matmul plus a stable sort, for shapes the
+kernel does not take, for ``approx_impl="xla"`` (the reference's
+``approx_max_k``, exact off the TPU) and for tests.  Distances are
+float32 throughout: a reduced-precision matmul mis-ranks
+centimetre-scale near-ties.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import torch
 
 from velo_tpu_torch import fp
 from velo_tpu_torch.kernels import dist_topk as dtk
+
+APPROX_IMPLS = ("pallas", "xla")
 
 
 class TargetSet(NamedTuple):
@@ -38,18 +42,18 @@ def knn(targets: TargetSet, queries: torch.Tensor, qmask: torch.Tensor,
     """Masked kNN.  Returns (idx (Q,k) int32 into targets.pts, dist (Q,k),
     valid (Q,k)); invalid lanes carry large distances.
 
-    ``approx=True`` routes to the binned ``dist_topk`` kernel when N % 256
-    == 0 and N >= 16k (``bin_factor`` 32 from N >= 16384, else 4), exactly
-    as the reference dispatches its Pallas kernel; other shapes take the
-    exact search (the reference's off-TPU ``approx_max_k`` is exact too).
+    ``approx=True`` with ``approx_impl="pallas"`` routes to the binned
+    ``dist_topk`` kernel when N % 256 == 0 and N >= 16k (``bin_factor`` 32
+    from N >= 16384, else 4), exactly as the reference dispatches its
+    Pallas kernel; other shapes, and ``approx_impl="xla"`` (XLA's
+    ``approx_max_k``, an exact top-k off the TPU), take the exact search.
     """
-    if approx and approx_impl != "pallas":
-        raise NotImplementedError(
-            f"nn_approx_impl={approx_impl!r}: XLA's approx_max_k has no port "
-            "(ROADMAP.md, 'Not to port')")
+    if approx_impl not in APPROX_IMPLS:
+        raise ValueError(f"unknown nn_approx_impl {approx_impl!r}")
     t = targets.pts
     q = queries
-    if approx and t.shape[0] % 256 == 0 and t.shape[0] >= 16 * k:
+    if (approx and approx_impl == "pallas" and t.shape[0] % 256 == 0
+            and t.shape[0] >= 16 * k):
         bf = 32 if t.shape[0] >= 16384 else 4
         d2, idx = dtk.dist_topk(t, targets.mask, q, k=k, bin_factor=bf)
         d2 = torch.where(qmask[:, None], d2, 1e30)

@@ -39,8 +39,10 @@ def insert(m: LocalMap, new_pts: torch.Tensor,
     pos = torch.where(new_mask, (m.cursor + offs) % C, C).long()
     pts = torch.cat([m.pts, m.pts.new_zeros((1, 3))])
     pts[pos] = new_pts
-    mask = torch.cat([m.mask, m.mask.new_zeros((1,))])
-    mask[pos] = True
+    # index_fill: a Python True assigned by index is a host tensor copied
+    # to the card, which a CUDA-graph capture refuses.
+    mask = torch.cat([m.mask, m.mask.new_zeros((1,))]).index_fill(0, pos,
+                                                                  True)
     cursor = (m.cursor + torch.sum(new_mask, dtype=torch.int32)) % C
     return LocalMap(pts=pts[:C], mask=mask[:C], cursor=cursor)
 
@@ -52,3 +54,9 @@ def maintain(m: LocalMap, center: torch.Tensor, cfg_voxel: float,
     mask = m.mask & (d < crop_radius)
     mask = voxel_hash.voxel_downsample(m.pts, mask, cfg_voxel, center=center)
     return LocalMap(pts=m.pts, mask=mask, cursor=m.cursor)
+
+
+def to_grid(m: LocalMap, center: torch.Tensor,
+            voxel_size: float) -> voxel_hash.VoxelGrid:
+    """A queryable voxel grid of the map's points, centred at ``center``."""
+    return voxel_hash.build_grid(m.pts, m.mask, voxel_size, center=center)

@@ -60,8 +60,11 @@ def build_grid(pts: torch.Tensor, mask: torch.Tensor, voxel_size: float,
                      center=center)
 
 
-_OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
-            for dz in (-1, 0, 1)]
+def _offsets(device) -> torch.Tensor:
+    """(27, 3) int32 voxel offsets, dx slowest and dz fastest, each in
+    (-1, 0, 1): made on the device from an arange (it captures)."""
+    a = torch.arange(27, dtype=torch.int32, device=device)
+    return torch.stack([a // 9 - 1, a // 3 % 3 - 1, a % 3 - 1], dim=-1)
 
 
 def knn(grid: VoxelGrid, queries: torch.Tensor, qmask: torch.Tensor, k: int,
@@ -80,7 +83,7 @@ def knn(grid: VoxelGrid, queries: torch.Tensor, qmask: torch.Tensor, k: int,
     q = queries.shape[0]
     dev = queries.device
     base = _voxel_coords(queries, grid.voxel_size, grid.center)  # (Q, 3)
-    offs = torch.tensor(_OFFSETS, dtype=torch.int32, device=dev)  # (27, 3)
+    offs = _offsets(dev)  # (27, 3)
     nk = _pack(base[:, None, :] + offs[None, :, :])  # (Q, 27)
     starts = torch.searchsorted(grid.keys, nk.reshape(-1).contiguous(),
                                 side="left")

@@ -6,9 +6,12 @@ B independent sequences advance in lockstep as one batched program:
 reference's ``jax.vmap`` over ``run_scan``.  One vmapped step per frame
 makes about the launches of one sequence's step for all B, and each of
 the two kernels (``dist_topk``, ``klt_l0``) launches once per call site
-with a batch axis in its grid (their ``register_vmap`` rules).  Sequences
-are independent, so ``shard=True`` splits the batch into contiguous
-chunks, one per card, with no collective between them.
+with a batch axis in its grid (their ``register_vmap`` rules).
+:func:`batched_run_scan` runs the frames of (B, F, ...) inputs on one
+device; on the card each batched step is one replay of a captured CUDA
+graph (``pipeline/graphs.py``).  Sequences are independent, so
+``shard=True`` splits the batch into contiguous chunks, one per card,
+with no collective between them.
 
 Two leaves of the carry stay outside the vmapped function: ``frame_host``
 is one Python int for all B (the map cadences stay host decisions), and
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from velo_tpu_torch.pipeline import odometry
+from velo_tpu_torch.pipeline import graphs, odometry
 
 
 def batched_step(cfg, cam=None):
@@ -42,6 +45,55 @@ def batched_step(cfg, cam=None):
             one, in_dims=_batch_dims(args),
             out_dims=(_batch_dims(args[0]), 0))(*args)
         return new._replace(frame_host=frame_host + 1), out
+
+    return run
+
+
+def jit_batched_step(cfg, cam=None):
+    """:func:`batched_step` as one device program: on the card one replay
+    of a CUDA graph of it per call (one graph per cadence key,
+    ``pipeline/graphs.py``; the returned carry is the graph's static
+    carry, as with ``odometry.jit_step``), on the CPU the batched step
+    itself."""
+
+    def fn(bcarry, scans, masks, images, c):
+        return batched_step(cfg, cam=c)(bcarry, scans, masks, images)
+
+    def run(bcarry, scans, masks, images=None):
+        inputs = (scans, masks, images, cam)
+        if scans.device.type != "cuda":
+            return fn(bcarry, *inputs)
+        return graphs.runner("batch.batched_step", cfg, fn, bcarry, inputs,
+                             lambda fh: odometry.cadence_key(cfg, fh))(
+                                 bcarry, *inputs)
+
+    return run
+
+
+def batched_run_scan(cfg, cam=None):
+    """The reference's ``batched_run_scan``: ``run(bcarry, bscans, bmasks
+    [, bimages]) -> (final bcarry, FrameResult)`` over (B, F, ...) inputs
+    on one device, each result field (B, F, ...): one
+    :func:`jit_batched_step` per frame (on the card one graph replay).
+    ``cam`` (one calibration for all sequences) selects the fused
+    pipeline, which takes the (B, F, H, W) image stack."""
+    step = jit_batched_step(cfg, cam)
+
+    def run(bcarry, bscans, bmasks, bimages=None):
+        if (cam is None) != (bimages is None):
+            raise ValueError("batched_run_scan: images go with cam")
+        outs = []
+        for f in range(bscans.shape[1]):
+            bcarry, out = step(bcarry, bscans[:, f], bmasks[:, f],
+                               None if bimages is None else bimages[:, f])
+            outs.append(out)
+        if not outs:
+            raise ValueError("batched_run_scan: no frames")
+        if bscans.device.type == "cuda":
+            bcarry = graphs.clone(bcarry)
+        return bcarry, odometry.FrameResult(*(
+            torch.stack([getattr(o, k) for o in outs], dim=1)
+            for k in odometry.FrameResult._fields))
 
     return run
 
@@ -100,32 +152,26 @@ def run_sequences(scans: np.ndarray, masks: np.ndarray, cfg,
     if B % len(devs):
         raise ValueError(f"batch {B} not divisible by {len(devs)} devices")
     n = B // len(devs)
-    chunks = []
+
+    def put(x, dtype, dev, sl):
+        return torch.as_tensor(np.ascontiguousarray(x[sl], dtype)).to(dev)
+
+    # All frames go to their card at once, as the reference puts the whole
+    # (B, F, ...) stack on the device; each card's run is queued before
+    # the next card's: replays are asynchronous, so the cards run their
+    # chunks side by side.
+    results = []
     for i, dev in enumerate(devs):
-        chunk = slice(i * n, (i + 1) * n)
-        c = cam.to(dev) if cfg.use_vision else None
-        chunks.append({
-            "dev": dev, "sl": chunk, "step": batched_step(cfg, cam=c),
-            "carry": broadcast_carry(odometry.init_carry(cfg, dev), n),
-            "outs": []})
+        sl = slice(i * n, (i + 1) * n)
+        run = batched_run_scan(cfg, cam=cam.to(dev) if cfg.use_vision
+                               else None)
+        ins = [put(scans, np.float32, dev, sl), put(masks, bool, dev, sl)]
+        if cfg.use_vision:
+            ins.append(put(images, np.float32, dev, sl))
+        results.append(run(broadcast_carry(odometry.init_carry(cfg, dev), n),
+                           *ins)[1])
 
-    def put(x, dtype, dev):
-        return torch.as_tensor(np.ascontiguousarray(x, dtype)).to(dev)
-
-    for f in range(F):
-        # Each card's step is queued before the next card's: the launches
-        # are asynchronous, so the cards run their chunks side by side.
-        for ch in chunks:
-            dev, sl = ch["dev"], ch["sl"]
-            image = (put(images[sl, f], np.float32, dev) if cfg.use_vision
-                     else None)
-            ch["carry"], out = ch["step"](
-                ch["carry"], put(scans[sl, f], np.float32, dev),
-                put(masks[sl, f], bool, dev), image)
-            ch["outs"].append(out)
-
-    res = {k: np.concatenate([
-        torch.stack([getattr(o, k) for o in ch["outs"]], dim=1).cpu().numpy()
-        for ch in chunks]) for k in odometry.FrameResult._fields}
+    res = {k: np.concatenate([getattr(r, k).cpu().numpy() for r in results])
+           for k in odometry.FrameResult._fields}
     poses = res.pop("T_w")
     return poses, res

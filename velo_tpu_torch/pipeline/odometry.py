@@ -25,8 +25,10 @@ reference's ``lax.cond`` cadences (map refinement every k frames, map
 maintenance every k frames) become Python branches on ``frame_host``, a
 host-side copy of the frame counter; data-dependent gates (has_map,
 map_applied, implausible) stay ``torch.where``, so a step never waits for
-the device.  ``init_carry`` and ``run_sequence`` run on the card unless
-the caller passes another device.
+the device and captures into a CUDA graph: on the card ``jit_step``,
+``run_scan`` and ``run_sequence`` replay one graph per cadence key
+(``cadence_key``, ``pipeline/graphs.py``).  ``init_carry`` and
+``run_sequence`` run on the card unless the caller passes another device.
 """
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ from velo_tpu_torch.lidar import curvature as curv_mod
 from velo_tpu_torch.lidar import deskew as deskew_mod
 from velo_tpu_torch.lidar import features as feat_mod
 from velo_tpu_torch.lidar import rangeimage as ri_mod
-from velo_tpu_torch.mapping import local_map
+from velo_tpu_torch.mapping import dense_nn, local_map
+from velo_tpu_torch.pipeline import graphs
 from velo_tpu_torch.solve import icp
 from velo_tpu_torch.solve import residuals as res
 from velo_tpu_torch.vision import corners as corners_mod
@@ -101,14 +104,23 @@ _RESULT_DEFAULTS = dict(
 
 
 def check_slice(cfg) -> None:
-    """Raise NotImplementedError for configurations this port lacks."""
-    sc = cfg.solver
+    """Raise ValueError for an unknown ``klt_impl`` or ``nn_approx_impl``
+    before any work."""
     if cfg.use_vision:
         klt_mod.check_impl(cfg.vision)
-    if sc.nn_approx_impl != "pallas":
-        raise NotImplementedError(
-            f"nn_approx_impl={sc.nn_approx_impl!r}: XLA's approx_max_k has no "
-            "port (ROADMAP.md, 'Not to port')")
+    if cfg.solver.nn_approx_impl not in dense_nn.APPROX_IMPLS:
+        raise ValueError(
+            f"unknown nn_approx_impl {cfg.solver.nn_approx_impl!r}")
+
+
+def cadence_key(cfg, frame_host: int) -> tuple:
+    """The host decisions of :func:`step` at ``frame_host``: (refine
+    against the map, maintain the map) on their cadences; () without a
+    map.  A captured step has one graph per key."""
+    if not cfg.use_map:
+        return ()
+    return (frame_host % max(cfg.map.map_every, 1) == 0,
+            frame_host % max(cfg.map.maintain_every, 1) == 0)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -403,13 +415,14 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg,
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     map_applied = torch.zeros((), dtype=torch.bool, device=dev)
     lm_accept_map = zero_i
+    refine, maintain = cadence_key(cfg, carry.frame_host) or (False, False)
     if cfg.use_map:
         e_targets = icp.make_targets(carry.edge_map.pts, carry.edge_map.mask)
         p_targets = icp.make_targets(carry.planar_map.pts,
                                      carry.planar_map.mask)
         has_map = (torch.sum(carry.edge_map.mask)
                    + torch.sum(carry.planar_map.mask)) > 100
-        if carry.frame_host % max(cfg.map.map_every, 1) == 0:
+        if refine:
             T_map, diag_m = icp.solve_scan_to_map(
                 feats.edges, feats.edge_mask, feats.planars,
                 feats.planar_mask, e_targets, p_targets, T_w, sc,
@@ -467,7 +480,7 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg,
         planar_map = local_map.insert(planar_map,
                                       se3.apply(ins_T, ins_planars),
                                       ins_planar_mask)
-        if carry.frame_host % max(cfg.map.maintain_every, 1) == 0:
+        if maintain:
             center = T_w[:3, 3]
             edge_map = local_map.maintain(edge_map, center,
                                           cfg.map.voxel_edge,
@@ -511,14 +524,66 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg,
 
 def _stack_results(outs) -> dict:
     """Per-frame results -> {field: numpy array over the frames}."""
-    return {k: torch.stack([getattr(o, k) for o in outs]).cpu().numpy()
-            for k in FrameResult._fields}
+    stacked = stack_results(outs)
+    return {k: getattr(stacked, k).cpu().numpy() for k in FrameResult._fields}
+
+
+def stack_results(outs) -> FrameResult:
+    """Per-frame results -> one FrameResult, each field stacked over the
+    frames on its device."""
+    return FrameResult(*(torch.stack([getattr(o, k) for o in outs])
+                         for k in FrameResult._fields))
+
+
+def jit_step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor,
+             cfg, image: torch.Tensor | None = None,
+             cam: cam_mod.Camera | None = None):
+    """:func:`step` as one device program (the reference's ``jit_step``):
+    on a CUDA carry, one replay of a CUDA graph of the step
+    (``pipeline/graphs.py``: one graph per cadence key, captured at first
+    need, a failed capture raises); on the CPU, :func:`step` itself.
+
+    On the card the returned carry is the graph's static carry, donated as
+    the reference donates its carry: the next call of this configuration
+    overwrites it (pass it back in, or clone it to keep it).  The
+    FrameResult is a copy of its own."""
+    if carry.T_w.device.type != "cuda":
+        return step(carry, scan, scan_mask, cfg, image=image, cam=cam)
+
+    def fn(c, s, m, im, cm):
+        return step(c, s, m, cfg, image=im, cam=cm)
+
+    inputs = (scan, scan_mask, image, cam)
+    return graphs.runner("odometry.step", cfg, fn, carry, inputs,
+                         lambda fh: cadence_key(cfg, fh))(carry, *inputs)
+
+
+def run_scan(carry: OdomCarry, scans: torch.Tensor, scan_masks: torch.Tensor,
+             cfg, images: torch.Tensor | None = None,
+             cam: cam_mod.Camera | None = None):
+    """Device-resident entry (the reference's ``run_scan``): (F, ...)
+    frames already on the carry's device, one :func:`jit_step` each (on
+    the card one graph replay).  Returns (final carry, FrameResult with
+    each field stacked over F), all on the device; ``carry`` itself is not
+    changed."""
+    outs = []
+    for f in range(scans.shape[0]):
+        carry, out = jit_step(carry, scans[f], scan_masks[f], cfg,
+                              image=None if images is None else images[f],
+                              cam=cam)
+        outs.append(out)
+    if not outs:
+        raise ValueError("run_scan: no frames")
+    if carry.T_w.device.type == "cuda":
+        carry = graphs.clone(carry)
+    return carry, stack_results(outs)
 
 
 def run_sequence(frames, cfg, carry: OdomCarry | None = None, device=None,
                  cam: cam_mod.Camera | None = None, checkpoint_path=None,
                  checkpoint_every: int = 0, resume: bool = False):
-    """Stream numpy frames through :func:`step`: (scan, mask) pairs, or
+    """Stream numpy frames through :func:`jit_step` (on the card one
+    CUDA-graph replay per frame): (scan, mask) pairs, or
     (scan, mask, image) triples with ``cfg.use_vision`` and its ``cam``;
     ``scan`` / ``mask`` are a pre-binned grid or, with
     ``cfg.prebin_host=False``, a padded raw scan.  ``frames`` may be any
@@ -584,8 +649,8 @@ def run_sequence(frames, cfg, carry: OdomCarry | None = None, device=None,
         if i < skip:
             continue
         image = put(frame[2], np.float32) if cfg.use_vision else None
-        carry, out = step(carry, put(frame[0], np.float32),
-                          put(frame[1], bool), cfg, image=image, cam=cam)
+        carry, out = jit_step(carry, put(frame[0], np.float32),
+                              put(frame[1], bool), cfg, image=image, cam=cam)
         outs.append(out)
         if checkpoint_path and checkpoint_every and (
                 (i + 1) % checkpoint_every == 0):
@@ -597,6 +662,8 @@ def run_sequence(frames, cfg, carry: OdomCarry | None = None, device=None,
         raise ValueError("run_sequence: no frames")
     stacked = dict(done)
     poses = stacked.pop("T_w")
+    if carry.T_w.device.type == "cuda":
+        carry = graphs.clone(carry)
     return poses, stacked, carry
 
 

@@ -169,8 +169,8 @@ def _prior_weights(cfg, prior_T, prior_scale):
     if prior_T is None or (cfg.prior_weight_trans <= 0
                            and cfg.prior_weight_rot <= 0):
         return None, None
-    w = torch.tensor([cfg.prior_weight_trans] * 3 + [cfg.prior_weight_rot] * 3,
-                     dtype=torch.float32, device=prior_T.device)
+    w = fp.const([cfg.prior_weight_trans] * 3 + [cfg.prior_weight_rot] * 3,
+                 torch.float32, prior_T.device)
     w = w * (1.0 if prior_scale is None else prior_scale)
     return w, se3.inv(prior_T)
 
@@ -316,8 +316,8 @@ def obs_prior_basis(cfg, w_prior, H_obs) -> ObsBasis:
     s = evals / torch.clamp(evals[..., 2:3], min=1e-12)
     obs = torch.clamp(fp.div(s, cfg.prior_obs_ref), 0.0, 1.0)
     w_base = torch.stack([w_prior[0], w_prior[3]])[:, None]
-    dz_base = torch.tensor([cfg.prior_deadzone_trans, cfg.prior_deadzone_rot],
-                           dtype=H_obs.dtype, device=H_obs.device)[:, None]
+    dz_base = fp.const([cfg.prior_deadzone_trans, cfg.prior_deadzone_rot],
+                       H_obs.dtype, H_obs.device)[:, None]
     w_i = w_base * (1.0 + cfg.prior_obs_gain * (1.0 - obs))
     dz_i = dz_base * (cfg.prior_obs_dz_floor
                       + (1.0 - cfg.prior_obs_dz_floor) * obs)
@@ -538,9 +538,9 @@ def make_lidar_system_ct(edges_base, edge_phase, edge_mask, line_a, line_b,
     """
     w_prior, prior_inv = _prior_weights(cfg, prior_T, prior_scale)
     dev = edges_base.device
-    w_couple = torch.tensor(
+    w_couple = fp.const(
         [cfg.couple_weight_trans] * 3 + [cfg.couple_weight_rot] * 3,
-        dtype=torch.float32, device=dev)
+        torch.float32, dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     Jc = torch.cat([-eye6, eye6], dim=1)  # (6, 12) d(xi2 - log T)
 

@@ -74,10 +74,10 @@ def _init_state(T0, cfg, cost) -> LMState:
     dev, dt = T0.device, T0.dtype
     return LMState(
         T=T0,
-        lam=torch.tensor(cfg.lm_lambda_init, dtype=dt, device=dev),
+        lam=torch.full((), cfg.lm_lambda_init, dtype=dt, device=dev),
         cost=cost,
         converged=torch.zeros((), dtype=torch.bool, device=dev),
-        last_delta=torch.tensor(torch.inf, dtype=dt, device=dev),
+        last_delta=torch.full((), torch.inf, dtype=dt, device=dev),
         n_accept=torch.zeros((), dtype=torch.int32, device=dev),
     )
 
@@ -135,7 +135,7 @@ def lm_solve(build_system: Callable | None, T0: torch.Tensor, cfg,
     # The initial cost is only read when iters == 0; every iteration
     # re-linearizes at st.T.
     st = _init_state(T0, cfg, cost_only(T0) if stage is None and iters == 0
-                     else torch.tensor(torch.inf, dtype=dt, device=dev))
+                     else torch.full((), torch.inf, dtype=dt, device=dev))
     for i in range(iters):
         if stage is not None:
             reuse = basis if i >= cfg.prior_obs_stage_iters else None
@@ -236,8 +236,8 @@ def lm_solve_ct(build_system: Callable | None, T0: torch.Tensor,
 
     st = LMStateCT(
         T=T0, xi2=xi2_0,
-        lam=torch.tensor(cfg.lm_lambda_init, dtype=dt, device=dev),
-        cost=(torch.tensor(torch.inf, dtype=dt, device=dev)
+        lam=torch.full((), cfg.lm_lambda_init, dtype=dt, device=dev),
+        cost=(torch.full((), torch.inf, dtype=dt, device=dev)
               if stage is not None else cost_only(T0, xi2_0)),
         converged=torch.zeros((), dtype=torch.bool, device=dev),
         n_accept=torch.zeros((), dtype=torch.int32, device=dev))

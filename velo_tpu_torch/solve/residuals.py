@@ -44,6 +44,17 @@ def point_to_plane(p: torch.Tensor, n: torch.Tensor, d0: torch.Tensor,
     return fp.dot3(n, p) + d0, n, valid
 
 
+def plane_from_3pts(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    valid: torch.Tensor, min_area: float = 1e-3):
+    """Unit planes (n, d) through point triples, gated on
+    non-collinearity -> (n_hat, d, ok)."""
+    n = fp.cross3(b - a, c - a)
+    nn = fp.norm3(n)
+    ok = valid & (nn > min_area)
+    n_hat = n / torch.clamp(nn, min=min_area)[..., None]
+    return n_hat, -fp.dot3(n_hat, a), ok
+
+
 def reprojection(p_cam: torch.Tensor, P: torch.Tensor, obs_uv: torch.Tensor,
                  valid: torch.Tensor):
     """Pinhole reprojection residual and its Jacobian wrt the camera-frame
@@ -65,7 +76,9 @@ def reprojection(p_cam: torch.Tensor, P: torch.Tensor, obs_uv: torch.Tensor,
 def _epipolar64(M, K, uv_prev, uv_cur):
     """Float64 pieces of the epipolar residual: (x1, x2, l, s = x2.l,
     ln = |l_xy|, fx)."""
-    Kinv = torch.linalg.inv(K.to(fp.F64))
+    # inv_ex: no host check of the result (it captures into a CUDA graph);
+    # the same LU inverse as linalg.inv.
+    Kinv = torch.linalg.inv_ex(K.to(fp.F64))[0]
     ones = torch.ones_like(uv_prev[..., :1])
     x1 = torch.cat([uv_prev, ones], dim=-1).to(fp.F64) @ Kinv.T
     x2 = torch.cat([uv_cur, ones], dim=-1).to(fp.F64) @ Kinv.T

@@ -52,7 +52,7 @@ def detect(img: torch.Tensor, cfg, border: int = 8) -> Corners:
     resp = shi_tomasi_response(img)
     # Kill the border so KLT patches always fit.
     mask = torch.zeros((H, W), dtype=torch.bool, device=img.device)
-    mask[border:H - border, border:W - border] = True
+    mask[border:H - border, border:W - border].fill_(True)  # (captures)
     resp = torch.where(mask, resp, -1.0)
 
     bh, bw = H // gr, W // gc

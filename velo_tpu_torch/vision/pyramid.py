@@ -1,9 +1,14 @@
 """Image pyramid, Scharr gradients and bilinear sampling
-(port of ``velo_tpu/vision/pyramid.py:14-83``).
+(port of ``velo_tpu/vision/pyramid.py``).
 
 Images are float32 (H, W) in [0, 1]; pyramids are tuples of levels.  Edge
-clamping is ``F.pad(mode="replicate")`` on a 4-D view.  The reference's
-selection-matmul and window samplers are TPU layouts and have no port.
+clamping is ``F.pad(mode="replicate")`` on a 4-D view.  Besides the flat
+gather (:func:`bilinear_sample`), the reference's selection-matmul
+samplers: bilinear weights as two-diagonal selection matrices, patches as
+two plain matrix products (``klt_impl="matmul"``), and integer windows
+sampled once per level (``klt_impl="window"``).  With ``dtype=bfloat16``
+the selection operands are rounded to bfloat16, as the reference rounds
+them, and the products sum in float32 (its ``preferred_element_type``).
 """
 from __future__ import annotations
 
@@ -82,3 +87,105 @@ def patch_offsets(halfwin: int, device=None) -> torch.Tensor:
                      device=device)
     oy, ox = torch.meshgrid(r, r, indexing="ij")
     return torch.stack([ox.reshape(-1), oy.reshape(-1)], dim=-1)
+
+
+def _mm(eq: str, a: torch.Tensor, b: torch.Tensor, dtype=None):
+    """``einsum(eq, a, b)`` in float32, the operands first rounded to
+    ``dtype`` when one is given (the products of two bfloat16 values are
+    exact in float32)."""
+    if dtype is not None:
+        a = a.to(dtype).to(torch.float32)
+        b = b.to(dtype).to(torch.float32)
+    return torch.einsum(eq, a, b)
+
+
+def _selection(centers, halfwin, H, W):
+    """Two-diagonal bilinear selection weights of (K, 2) centers: wcol
+    (W, K, S), wrow (K, S, H), and the patch-inside-image flag."""
+    S = 2 * halfwin + 1
+    dev = centers.device
+    x, y = centers[:, 0], centers[:, 1]
+    x0 = torch.floor(x).to(torch.int32) - halfwin
+    y0 = torch.floor(y).to(torch.int32) - halfwin
+    fx = x - torch.floor(x)
+    fy = y - torch.floor(y)
+    inb = (x0 >= 0) & (y0 >= 0) & (x0 + S < W) & (y0 + S < H)
+    ar = torch.arange(S, dtype=torch.int32, device=dev)
+    src = torch.arange(W, dtype=torch.int32, device=dev)[:, None, None]
+    tgt = x0[None, :, None] + ar[None, None, :]
+    wcol = ((src == tgt) * (1.0 - fx)[None, :, None]
+            + (src == tgt + 1) * fx[None, :, None])  # (W, K, S)
+    rsrc = torch.arange(H, dtype=torch.int32, device=dev)[None, None, :]
+    rtgt = y0[:, None, None] + ar[None, :, None]
+    wrow = ((rsrc == rtgt) * (1.0 - fy)[:, None, None]
+            + (rsrc == rtgt + 1) * fy[:, None, None])  # (K, S, H)
+    return wcol, wrow, inb
+
+
+def bilinear_patches_matmul(img: torch.Tensor, centers: torch.Tensor,
+                            halfwin: int, dtype=None):
+    """Bilinear (K, S, S) patches around float (x, y) centers by two
+    selection products, ``img @ wcol`` then ``wrow @ strips``.  Returns
+    (patches float32, in_bounds (K,)): rows and columns outside the image
+    select nothing, and ``in_bounds`` flags the features they touch."""
+    H, W = img.shape
+    wcol, wrow, inb = _selection(centers, halfwin, H, W)
+    strips = _mm("hw,wks->hks", img, wcol, dtype)  # (H, K, S)
+    return _mm("krh,hkc->krc", wrow, strips, dtype), inb
+
+
+def bilinear_patches_matmul_multi(imgs: torch.Tensor, centers: torch.Tensor,
+                                  halfwin: int, dtype=None):
+    """(C, K, S, S) patches of a (C, H, W) channel stack that share the
+    selection weights (an image and its two gradients), one product
+    pair for all channels."""
+    _, H, W = imgs.shape
+    wcol, wrow, inb = _selection(centers, halfwin, H, W)
+    strips = _mm("chw,wks->chks", imgs, wcol, dtype)
+    return _mm("krh,chks->ckrs", wrow, strips, dtype), inb
+
+
+def integer_windows(imgs: torch.Tensor, topleft: torch.Tensor, size: int,
+                    dtype=None) -> torch.Tensor:
+    """(C, K, size, size) integer-anchored windows of a (C, H, W) stack at
+    (K, 2) int32 (x0, y0) corners, by selection products; rows and
+    columns outside the image read zero."""
+    _, H, W = imgs.shape
+    dev = imgs.device
+    ar = torch.arange(size, dtype=torch.int32, device=dev)
+    src = torch.arange(W, dtype=torch.int32, device=dev)[:, None, None]
+    wcol = (src == topleft[None, :, 0, None] + ar[None, None]).to(
+        imgs.dtype)  # (W, K, size)
+    rsrc = torch.arange(H, dtype=torch.int32, device=dev)[None, None, :]
+    wrow = (rsrc == topleft[:, 1][:, None, None] + ar[None, :, None]).to(
+        imgs.dtype)  # (K, size, H)
+    strips = _mm("chw,wks->chks", imgs, wcol, dtype)
+    return _mm("krh,chks->ckrs", wrow, strips, dtype)
+
+
+def bilinear_patches_local(wins: torch.Tensor, luv: torch.Tensor,
+                           halfwin: int):
+    """Bilinear (K, S, S) patches from (K, Sw, Sw) per-track windows at
+    (K, 2) window-local centers, two small products per track.  Returns
+    (patches, inside-the-window flag)."""
+    _, Sw, _ = wins.shape
+    S = 2 * halfwin + 1
+    dev = wins.device
+    x, y = luv[:, 0], luv[:, 1]
+    x0 = torch.floor(x).to(torch.int32) - halfwin
+    y0 = torch.floor(y).to(torch.int32) - halfwin
+    fx = x - torch.floor(x)
+    fy = y - torch.floor(y)
+    inw = (x0 >= 0) & (y0 >= 0) & (x0 + S < Sw) & (y0 + S < Sw)
+    ar = torch.arange(S, dtype=torch.int32, device=dev)
+    sw = torch.arange(Sw, dtype=torch.int32, device=dev)
+    tgt = x0[:, None, None] + ar[None, None, :]
+    src = sw[None, :, None]
+    wcol = ((src == tgt) * (1.0 - fx)[:, None, None]
+            + (src == tgt + 1) * fx[:, None, None])  # (K, Sw, S)
+    rtgt = y0[:, None, None] + ar[None, :, None]
+    rsrc = sw[None, None, :]
+    wrow = ((rsrc == rtgt) * (1.0 - fy)[:, None, None]
+            + (rsrc == rtgt + 1) * fy[:, None, None])  # (K, S, Sw)
+    rows = torch.einsum("ksw,kwv->ksv", wrow, wins)  # (K, S, Sw)
+    return torch.einsum("ksv,kvc->ksc", rows, wcol), inw
