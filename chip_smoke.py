@@ -95,6 +95,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
     sequences x 3 frames each (the batch phase's drives): each rank's poses
     byte-equal to a single-process ``batch.run_sequences`` of its
     sequences, the global cost the mean over all 4;
+11c. long drive: 40 frames of seed 0 at 64 x 2048, LiDAR-only, host
+    pre-binned, shipped solver and map (``velo_tpu_torch.evaluation.
+    longrun``: its fixture, simulated in a worker process from the start,
+    its cold ``run_scan`` and its drift row): 4 ``dist_topk`` wrapper calls
+    per frame and graph; both map rings must wrap (each ring's write head
+    against the points inserted, frame by frame); the same drive warm as
+    two ``run_scan`` calls split at an odd frame, bitwise equal to the
+    cold call; one CPU step from the card's carry at two frames after the
+    wrap against the card's pose and every carry leaf (bitwise, else 5 cm
+    / 0.1 deg); launches per replayed frame after the wrap (profiler);
+    median relative error <= 0.04 m and ATE <= 1.0 m; warm frames/s;
 12. batched kernels: both under ``torch.func.vmap`` at B = 4 and 8 (inputs
     batched, and shared at batch stride 0): one launch per call, each
     sequence bitwise equal to its unbatched launch and to the plain
@@ -117,6 +128,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -284,22 +296,28 @@ def memoize_fixtures() -> None:
     fixtures.make_fixture = make_fixture
 
 
-def start_prefetch(kws):
+def start_prefetch(kws, long_kw):
     """Start simulating drives in worker processes (spawned, one per
-    drive), while the phases before the one that needs them run; the
-    caller shuts the pool down."""
+    drive), while the phases before the one that needs them run: the
+    fixtures ``kws`` and the long drive (``longrun.get_fixture(**long_kw)``,
+    whose future is the job's last item); the caller shuts the pool
+    down."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
+    from velo_tpu_torch.evaluation import longrun
+
     pool = ProcessPoolExecutor(
-        max_workers=len(kws), mp_context=multiprocessing.get_context("spawn"))
-    return pool, kws, [pool.submit(_simulate, kw) for kw in kws]
+        max_workers=len(kws) + 1,
+        mp_context=multiprocessing.get_context("spawn"))
+    return (pool, kws, [pool.submit(_simulate, kw) for kw in kws],
+            pool.submit(longrun.get_fixture, **long_kw))
 
 
 def finish_prefetch(job) -> None:
-    """Wait for :func:`start_prefetch`'s drives and put them into the memo
-    of :func:`memoize_fixtures`."""
-    pool, kws, futures = job
+    """Wait for :func:`start_prefetch`'s drives and put the fixtures into
+    the memo of :func:`memoize_fixtures`."""
+    pool, kws, futures, _ = job
     t0 = time.perf_counter()
     for kw, fut in zip(kws, futures):
         _FIXTURES[_fixture_key(kw)] = fut.result()
@@ -1838,6 +1856,175 @@ def batch_throughput(dev, bi, smi) -> dict:
     return rows
 
 
+# The long drive: the reference's drift runs take 150 frames; 40 take both
+# map rings past their first wrap at this width (a frame inserts up to
+# 3072 edges and 6144 planars into rings of 16384 and 32768) inside the
+# script's time limit.
+LONG_FRAMES = 40
+# The warm pass runs as two run_scan calls, split at an odd frame: the map
+# is maintained every 2 frames, so the second call starts off the cadence.
+LONG_SPLIT = 21
+# Median per-frame relative error, about twice the reference's 0.016-0.019
+# m over its own 150-frame drives, and the ATE bound (m).
+GATE_LONG_MED_REL_M, GATE_LONG_ATE_M = 0.04, 1.0
+
+
+def long_drive_kw(cache_dir) -> dict:
+    return dict(frames=LONG_FRAMES, rings=RINGS, az=AZ, seed=SEED,
+                cache_dir=cache_dir)
+
+
+def _named_leaves(carry) -> dict:
+    """A LiDAR-only carry's tensors by name."""
+    out = {k: v for k, v in carry._asdict().items()
+           if isinstance(v, torch.Tensor)}
+    for name in ("edge_map", "planar_map"):
+        out.update({f"{name}.{k}": v for k, v in
+                    getattr(carry, name)._asdict().items()})
+    return out
+
+
+def long_drive(dev, drive, smi) -> dict:
+    """The long drive through ``velo_tpu_torch.evaluation.longrun`` (see
+    the module docstring, phase 11c): the main path past the first wrap
+    of both map rings."""
+    from velo_tpu_torch.evaluation import longrun
+    from velo_tpu_torch.kernels.dist_topk import dist_topk
+    from velo_tpu_torch.kernels.klt_l0 import track_level0
+    from velo_tpu_torch.pipeline import graphs, odometry
+
+    scans, masks, gt_velo, gt_cam, T_cv, _, _ = drive
+    digest = longrun.fixture_digest(scans, masks)
+    cfg = longrun.run_config("base", RINGS, AZ, prebin=True)
+    grids, valid = longrun.prebin(scans, masks, cfg.lidar)
+    scans_d = torch.as_tensor(grids).to(dev)
+    masks_d = torch.as_tensor(valid).to(dev)
+
+    # The harness's own cold run (captures included).
+    dist_topk.launches = 0
+    track_level0.launches = 0
+    _, out, secs = longrun.run_drive(cfg, scans_d, masks_d)
+    launches = {"dist_topk": dist_topk.launches,
+                "klt_l0": track_level0.launches}
+    _expect_launches("long-drive", launches, 4, 0)
+    captures = [c._asdict() for c in graphs.captures()]
+    poses = out.T_w.cpu().numpy()
+    if not np.all(np.isfinite(poses)) or poses.shape != (LONG_FRAMES, 4, 4):
+        raise AssertionError(f"long-drive: bad poses: shape {poses.shape}")
+    row, rel, _ = longrun.metrics_row("base", SEED, poses, gt_velo, gt_cam,
+                                      T_cv, out.degenerate.cpu().numpy(),
+                                      secs)
+
+    # Warm, as two run_scan calls: the cadence carries across them.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, first = odometry.run_scan(odometry.init_carry(cfg, dev),
+                                     scans_d[:LONG_SPLIT],
+                                     masks_d[:LONG_SPLIT], cfg)
+    _, second = odometry.run_scan(carry, scans_d[LONG_SPLIT:],
+                                  masks_d[LONG_SPLIT:], cfg)
+    torch.cuda.synchronize()
+    warm_fps = LONG_FRAMES / (time.perf_counter() - t0)
+    differ = [k for k in out._fields if not torch.equal(
+        torch.cat([getattr(first, k), getattr(second, k)]), getattr(out, k))]
+    if differ:
+        raise AssertionError(f"long-drive: two run_scan calls differ from "
+                             f"one in {differ}")
+
+    # Frame by frame, keeping the carry entering each frame: how full the
+    # rings are, and the card's carry for the CPU.
+    carries, fill, step_poses = [], [], []
+    carry = odometry.init_carry(cfg, dev)
+    for f in range(LONG_FRAMES):
+        carries.append(graphs.clone(carry))
+        carry, o = odometry.jit_step(carry, scans_d[f], masks_d[f], cfg)
+        fill.append(torch.stack([
+            carry.prev_edge_mask.sum(), carry.prev_planar_mask.sum(),
+            carry.edge_map.cursor.long(), carry.planar_map.cursor.long(),
+            carry.edge_map.mask.sum(), carry.planar_map.mask.sum()]))
+        step_poses.append(o.T_w)
+    carries.append(graphs.clone(carry))
+    fill = torch.stack(fill).cpu().numpy()
+    if not torch.equal(torch.stack(step_poses), out.T_w):
+        raise AssertionError("long-drive: jit_step frame by frame differs "
+                             "from run_scan")
+    rings = {}
+    for j, (name, cap) in enumerate((("edge", cfg.map.edge_capacity),
+                                     ("planar", cfg.map.planar_capacity))):
+        cum = np.cumsum(fill[:, j])
+        if not np.array_equal(fill[:, 2 + j], cum % cap):
+            raise AssertionError(f"long-drive: {name} write head "
+                                 f"{fill[:, 2 + j].tolist()} is not the "
+                                 f"points inserted mod {cap}")
+        over = np.flatnonzero(cum > cap)
+        rings[name] = {"capacity": cap, "inserted_per_frame":
+                       fill[:, j].tolist(), "cumulative": cum.tolist(),
+                       "valid_after_frame": fill[:, 4 + j].tolist(),
+                       "first_wrap_frame": int(over[0]) if len(over)
+                       else None}
+        print(f"long-drive: {name} ring of {cap}: cumulative points "
+              f"inserted per frame {cum.tolist()}; first wrapped in frame "
+              f"{rings[name]['first_wrap_frame']}; valid after the last "
+              f"frame {int(fill[-1, 4 + j])}", flush=True)
+    if any(r["first_wrap_frame"] is None for r in rings.values()):
+        raise AssertionError("long-drive: a map ring never wrapped")
+    wrap = max(r["first_wrap_frame"] for r in rings.values())
+
+    # The card against the CPU, one step each, after the wrap.
+    cpu = {}
+    for f in sorted({wrap + 1, LONG_FRAMES - 1}):
+        t0 = time.perf_counter()
+        cpu_carry = odometry.carry_from_jax_numpy(
+            odometry.carry_to_numpy(carries[f]), "cpu")
+        new, o = odometry.step(cpu_carry, torch.as_tensor(grids[f]),
+                               torch.as_tensor(valid[f]), cfg)
+        dt, dr = _pose_errors(poses[f][None], o.T_w.numpy()[None])
+        card = _named_leaves(carries[f + 1])
+        differ = [k for k, v in _named_leaves(new).items()
+                  if not torch.equal(card[k].cpu(), v)]
+        cpu[f] = {"diff_m": float(dt[0]), "diff_deg": float(dr[0]),
+                  "bitwise": np.array_equal(poses[f], o.T_w.numpy())
+                  and not differ, "leaves_differ": differ}
+        print(f"long-drive frame {f}: one CPU step from the card's carry: "
+              f"pose {dt[0]:.6f} m, {dr[0]:.6f} deg, bitwise "
+              f"{cpu[f]['bitwise']}, carry leaves differing {differ} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if dt[0] > GATE_CPU_M or dr[0] > GATE_CPU_DEG:
+            raise AssertionError(f"long-drive frame {f}: card and CPU "
+                                 "disagree")
+
+    # Launches inside replays at full rings.
+    prof = _profile_calls(lambda: odometry.run_scan(
+        carries[wrap + 1], scans_d[wrap + 1:wrap + 3],
+        masks_d[wrap + 1:wrap + 3], cfg))
+    replayed = {k: v / 2 for k, v in prof["launches"].items()}
+    if replayed != {"dist_topk": 4, "klt_l0": 0}:
+        raise AssertionError(f"long-drive: launches per replayed frame "
+                             f"{replayed}")
+    graphs.release()
+
+    print(f"long-drive: {LONG_FRAMES} frames of seed {SEED} at {RINGS} x "
+          f"{AZ} (fixture sha256 {digest[:16]}): row {json.dumps(row)}; "
+          f"wrapper calls {launches} ({len(captures)} graphs), launches per "
+          f"replayed frame after the wrap {replayed}, card "
+          f"{prof['device_s'] / 2:.4f} s per frame there; cold "
+          f"{row['secs']} s incl. captures, warm {warm_fps:.3f} frames/s "
+          f"(two run_scan calls, bitwise equal to one) on {smi}",
+          flush=True)
+    if (row["med_rel_err_m"] > GATE_LONG_MED_REL_M
+            or row["ate_m"] > GATE_LONG_ATE_M):
+        raise AssertionError(
+            f"long-drive: median relative error {row['med_rel_err_m']} m "
+            f"(gate {GATE_LONG_MED_REL_M}) or ATE {row['ate_m']} m (gate "
+            f"{GATE_LONG_ATE_M})")
+    return {"frames": LONG_FRAMES, "seed": SEED, "fixture_sha256": digest,
+            "row": row, "launches": launches, "captures": captures,
+            "launches_per_replayed_frame": replayed,
+            "profile_2_frames_after_wrap": prof, "warm_fps": warm_fps,
+            "rings": rings, "cpu_after_wrap": cpu,
+            "rel_err_m": [round(float(x), 5) for x in rel]}
+
+
 DIST_WORKER = r"""
 import datetime, pickle, sys
 sys.path.insert(0, {repo!r})
@@ -1937,8 +2124,10 @@ def main() -> int:
     smi = card_check()
     dev = torch.device("cuda", 0)
     memoize_fixtures()
-    # The batch phase's drives simulate meanwhile, on other cores.
-    sims = start_prefetch(batch_fixture_kws())
+    # The batch phase's drives and the long drive simulate meanwhile, on
+    # other cores.
+    long_dir = tempfile.mkdtemp(prefix="velo-long-drive-")
+    sims = start_prefetch(batch_fixture_kws(), long_drive_kw(long_dir))
     seconds = {}
 
     def phase(name, fn, *args):
@@ -1981,6 +2170,8 @@ def main() -> int:
                                            dev, tmp, smi)
             runs["distributed"] = phase("distributed", distributed_phase,
                                         dev, inputs["lidar"], tmp, smi)
+        runs["long-drive"] = phase("long-drive", long_drive, dev,
+                                   sims[3].result(), smi)
         dk["per_shape"] += phase("batch dist_topk", batch_dist_topk, dev)
         kk["per_shape"] += phase("batch klt_l0", batch_klt_l0, dev,
                                  inputs["fused"])
@@ -1988,6 +2179,7 @@ def main() -> int:
             "batch throughput", batch_throughput, dev, inputs["fused"], smi)
     finally:
         sims[0].shutdown(cancel_futures=True)
+        shutil.rmtree(long_dir, ignore_errors=True)
 
     def entry(name, source, replaces, check, library_ms, **extra):
         # One frame's calls of the forward path; the smoother's and the
@@ -2013,6 +2205,7 @@ def main() -> int:
                 "batch-shard": runs["batch"]["shard"]["launches"][name],
                 **{f"batch-{mode}": run["launches"][name] for mode, run in
                    runs["batch-variants"].items()},
+                "long-drive": runs["long-drive"]["launches"][name],
                 "cli-kitti": runs["cli-kitti"]["launches"][name],
                 "cli-variants": sum(v["launches"][name] for v in
                                     runs["cli-variants"].values())},

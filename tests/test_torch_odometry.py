@@ -190,8 +190,9 @@ def test_fused_frames_end_to_end(fused_frames, fused_reference):
     assert worst[0] < 0.05 and worst[1] < 0.1, worst
 
 
-def test_import_leaves_jax_out():
-    """The port runs a fixture, one fused CPU step and the KITTI metric
+def test_import_leaves_jax_out(tmp_path):
+    """The port runs a fixture, one fused CPU step, the KITTI metric and
+    the long-drive harness (a cached fixture, a scored trajectory, a run)
     without loading JAX or any file of ``velo_tpu/``, and its fixtures
     ignore ``VELO_FIX_ACCEL=1``."""
     code = (
@@ -215,17 +216,26 @@ def test_import_leaves_jax_out():
         "assert carry.vision.tracks.active.any()\n"
         "vt.kitti_metric.evaluate_trajectory(np.stack([np.eye(4)] * 3), "
         "np.stack([np.eye(4)] * 3))\n"
+        "from velo_tpu_torch.evaluation import longrun\n"
+        "s, m, gv, gc, tcv, _, _ = longrun.get_fixture(2, 16, 256, seed=5, "
+        "cache_dir=%r)\n"
+        "row, _, _ = longrun.metrics_row('base', 5, gv, gv, gc, tcv, "
+        "np.zeros(2, bool), 1.0)\n"
+        "assert row['ate_m'] == 0.0 and row['med_rel_err_m'] == 0.0, row\n"
+        "rows = longrun.main(['--device', 'cpu', '--frames', '2', '--rings', "
+        "'16', '--azimuth', '256', '--seeds', '5', '--cache-dir', %r])\n"
+        "assert rows[0]['ate_m'] < 0.2, rows\n"
         "ref = os.path.join(%r, 'velo_tpu') + os.sep\n"
         "bad = [m for m, mod in list(sys.modules.items()) if "
         "m.split('.')[0] in ('jax', 'jaxlib', 'velo_tpu') or "
         "(getattr(mod, '__file__', None) or '').startswith(ref)]\n"
         "assert not bad, bad\n"
-        "print('ok')\n") % REPO
+        "print('ok')\n") % (str(tmp_path), str(tmp_path), REPO)
     env = dict(os.environ, PYTHONPATH=REPO, VELO_FIX_ACCEL="1")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_entry_points_default_to_the_card(monkeypatch, frames):

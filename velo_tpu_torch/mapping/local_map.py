@@ -33,17 +33,25 @@ def insert(m: LocalMap, new_pts: torch.Tensor,
     of bounds.  Here invalid lanes are routed to one spare row past the end
     of a copy of the buffer, which is then cut off: the write stays a single
     fixed-shape scatter with no host synchronisation.
+
+    With more valid points than slots, the reference's scatter writes in
+    lane order, so the last C valid points stay.  A scatter with repeated
+    indices leaves the winner unspecified (on the CPU and on the card), so
+    the valid lanes before the last C go to the spare row as well: no two
+    lanes ever write one slot.
     """
     C = m.pts.shape[0]
     offs = torch.cumsum(new_mask.to(torch.int32), dim=0, dtype=torch.int32) - 1
-    pos = torch.where(new_mask, (m.cursor + offs) % C, C).long()
+    n_new = torch.sum(new_mask, dtype=torch.int32)
+    pos = torch.where(new_mask & (offs >= n_new - C), (m.cursor + offs) % C,
+                      C).long()
     pts = torch.cat([m.pts, m.pts.new_zeros((1, 3))])
     pts[pos] = new_pts
     # index_fill: a Python True assigned by index is a host tensor copied
     # to the card, which a CUDA-graph capture refuses.
     mask = torch.cat([m.mask, m.mask.new_zeros((1,))]).index_fill(0, pos,
                                                                   True)
-    cursor = (m.cursor + torch.sum(new_mask, dtype=torch.int32)) % C
+    cursor = (m.cursor + n_new) % C
     return LocalMap(pts=pts[:C], mask=mask[:C], cursor=cursor)
 
 
