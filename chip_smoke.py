@@ -106,6 +106,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
     wrap against the card's pose and every carry leaf (bitwise, else 5 cm
     / 0.1 deg); launches per replayed frame after the wrap (profiler);
     median relative error <= 0.04 m and ATE <= 1.0 m; warm frames/s;
+11d. fixtures-accel: the drive simulator on the card (``VELO_FIX_ACCEL=1``,
+    ``velo_tpu_torch.io.fixtures_accel``): (a) the long drive of 11c
+    through ``longrun.get_fixture`` into a cache of its own (file tagged
+    ``_accel-torch-cuda``), frame by frame against 11c's numpy drive
+    within the reference's bounds (lengths within max(2, 0.1 %), 99th
+    percentile of point distance < 1 mm), its seconds split into host
+    set-up, device raycast, host tail and pad + cache write, beside one
+    numpy frame timed on the host; (b) the fused fixture of phase 3 with
+    images, against its numpy images (99.9th percentile of |diff| < 1e-2,
+    mean < 1e-4); (c) the card against the port's CPU on frames 0-1 of
+    both (hit distances and scans bitwise or not, images' max |diff| and
+    pixels that differ; hit distances within 1 mm, misses equal); (d)
+    11c's cold ``run_scan`` on the accelerated drive: 4 ``dist_topk``
+    wrapper calls per frame and graph, median relative error <= 0.04 m
+    and ATE <= 1.0 m;
 12. batched kernels: both under ``torch.func.vmap`` at B = 4 and 8 (inputs
     batched, and shared at batch stride 0): one launch per call, each
     sequence bitwise equal to its unbatched launch and to the plain
@@ -133,6 +148,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -279,12 +295,16 @@ def memoize_fixtures() -> None:
     10-40 s at full scale; the command line simulates anew on every call
     and the phases below ask for the same drives several times.  A drive
     asked for without images is the one with images, when that was made:
-    the renderer draws no random numbers, so the scans are the same."""
+    the renderer draws no random numbers, so the scans are the same.  With
+    ``VELO_FIX_ACCEL=1`` (the fixtures-accel phase) it simulates anew: the
+    memo holds numpy drives."""
     from velo_tpu_torch.io import fixtures
 
     make = fixtures.make_fixture
 
     def make_fixture(**kw):
+        if os.environ.get("VELO_FIX_ACCEL") == "1":
+            return make(**kw)
         key = _fixture_key(kw)
         if key not in _FIXTURES and kw.get("with_images") is False:
             key = _fixture_key({**kw, "with_images": True})
@@ -326,14 +346,16 @@ def finish_prefetch(job) -> None:
           f"waited {time.perf_counter() - t0:.1f} s for them", flush=True)
 
 
+FRAMES_KW = dict(n_frames=N_FRAMES, n_rings=RINGS, n_azimuth=AZ,
+                 height=IMG_H, width=IMG_W, seed=SEED)
+
+
 def make_frames():
     import velo_tpu_torch as vt
     from velo_tpu_torch.lidar import rangeimage as ri_mod
 
     t0 = time.perf_counter()
-    fx = vt.fixtures.make_fixture(n_frames=N_FRAMES, n_rings=RINGS,
-                                  n_azimuth=AZ, height=IMG_H, width=IMG_W,
-                                  seed=SEED)
+    fx = vt.fixtures.make_fixture(**FRAMES_KW)
     lcfg = vt.config.LidarConfig(n_rings=RINGS, n_azimuth=AZ)
     grids = [ri_mod.bin_scan_host(s, lcfg) for s in fx.scans]
     print(f"fixture: {N_FRAMES} frames with images in "
@@ -2025,6 +2047,220 @@ def long_drive(dev, drive, smi) -> dict:
             "rel_err_m": [round(float(x), 5) for x in rel]}
 
 
+@contextlib.contextmanager
+def _time_calls(spent, *targets):
+    """Add each call's seconds to ``spent[name]`` for every ``(module,
+    name)`` in ``targets`` while the block runs (nested calls counted in
+    both)."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def timed(fn, name):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    for mod, name, fn in saved:
+        setattr(mod, name, timed(fn, name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _seconds_split(spent, total) -> dict:
+    """Host set-up, device raycast, host tail and pad + cache write of
+    one accelerated simulation, from :func:`_time_calls`' ``spent``."""
+    raycast = spent.get("_sweep_hits", 0.0) + spent.get("_render_frames", 0.0)
+    outer = (spent.get("simulate_sweep_batch", 0.0)
+             + spent.get("render_batch", 0.0))
+    return {"host_setup_s": outer - raycast, "device_raycast_s": raycast,
+            "host_tail_s": spent["make_fixture"] - outer,
+            "pad_and_write_s": total - spent["make_fixture"],
+            "total_s": total}
+
+
+def _scans_close(what, ref, acc) -> dict:
+    """The reference's bounds for its accelerated against its numpy scans
+    (``tests/unit/test_fixtures_accel.py``): lengths within max(2, 0.1 %),
+    99th percentile of point distance over the common prefix < 1 mm."""
+    worst_len, worst_p99 = 0, 0.0
+    for f, (a, b) in enumerate(zip(ref, acc)):
+        n = min(len(a), len(b))
+        d = np.linalg.norm(a[:n, :3] - b[:n, :3], axis=1)
+        p99 = float(np.percentile(d, 99))
+        if abs(len(a) - len(b)) > max(2, 0.001 * n) or p99 >= 1e-3:
+            raise AssertionError(f"fixtures-accel {what} frame {f}: "
+                                 f"{len(a)} numpy against {len(b)} "
+                                 f"accelerated points, 99th percentile "
+                                 f"distance {p99} m")
+        worst_len = max(worst_len, abs(len(a) - len(b)))
+        worst_p99 = max(worst_p99, p99)
+    return {"max_len_diff": worst_len, "max_p99_dist_m": worst_p99}
+
+
+# The drive simulator raycasts on the device inside this block
+# (``velo_tpu_torch.io.fixtures_accel``).
+ACCEL_SWITCH = mock.patch.dict(os.environ, {"VELO_FIX_ACCEL": "1"})
+
+
+def fixtures_accel_phase(dev, drive, smi) -> dict:
+    """The drive simulator on the card (``VELO_FIX_ACCEL=1``, see the
+    module docstring, phase 11d): the long drive and the fused fixture
+    against their numpy drives, card against CPU, and odometry on the
+    accelerated drive."""
+    from velo_tpu_torch.evaluation import longrun
+    from velo_tpu_torch.io import fixtures, fixtures_accel
+    from velo_tpu_torch.kernels.dist_topk import dist_topk
+    from velo_tpu_torch.kernels.klt_l0 import track_level0
+
+    targets = [(fixtures, "make_fixture")] + [
+        (fixtures_accel, name) for name in (
+            "simulate_sweep_batch", "_sweep_hits", "render_batch",
+            "_render_frames")]
+    cache_dir = tempfile.mkdtemp(prefix="velo-fixtures-accel-")
+    try:
+        # (a) The long drive, simulated on the card into its own cache.
+        kw = dict(long_drive_kw(cache_dir), device=dev)
+        spent = {}
+        with ACCEL_SWITCH, _time_calls(spent, *targets):
+            t0 = time.perf_counter()
+            scans, masks, gt_velo, gt_cam, T_cv, _, _ = longrun.get_fixture(
+                **kw)
+            drive_split = _seconds_split(spent, time.perf_counter() - t0)
+            path = longrun.fixture_path(**kw)
+            generator = longrun.generator(dev)
+        if not (path.endswith(f"_accel-torch-{dev.type}.npz")
+                and os.path.exists(path)):
+            raise AssertionError(f"fixtures-accel: cache file {path}")
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    np_scans, np_masks, np_gt_velo = drive[0], drive[1], drive[2]
+    if not np.array_equal(gt_velo, np_gt_velo):
+        raise AssertionError("fixtures-accel: ground truth differs")
+    drive_close = _scans_close("long drive", [s[m] for s, m in zip(
+        np_scans, np_masks)], [s[m] for s, m in zip(scans, masks)])
+    digest = longrun.fixture_digest(scans, masks)
+    world = fixtures.default_world(SEED)
+    poses = fixtures.make_trajectory(LONG_FRAMES + 1, speed=8.0,
+                                     seed=SEED + 2)
+    t0 = time.perf_counter()
+    fixtures.simulate_velodyne(world, poses[0], poses[1], n_rings=RINGS,
+                               n_azimuth=AZ)
+    numpy_frame_s = time.perf_counter() - t0
+
+    # (b) The fused cell's 4 frames with images, against the memo's numpy
+    # fixture (make_frames).
+    spent = {}
+    with ACCEL_SWITCH, _time_calls(spent, *targets):
+        t0 = time.perf_counter()
+        fx = fixtures.make_fixture(**FRAMES_KW, device=dev)
+        frames_split = _seconds_split(spent, time.perf_counter() - t0)
+    ref = _FIXTURES[_fixture_key(FRAMES_KW)]
+    frames_close = _scans_close("fused fixture", ref.scans, fx.scans)
+    d = np.abs(ref.images - fx.images)
+    images = {"p999_abs_diff": float(np.percentile(d, 99.9)),
+              "mean_abs_diff": float(d.mean()), "max_abs_diff": float(
+                  d.max())}
+    if images["p999_abs_diff"] >= 1e-2 or images["mean_abs_diff"] >= 1e-4:
+        raise AssertionError(f"fixtures-accel images: {images}")
+    P, T_cv4 = fixtures.default_calib(IMG_H, IMG_W)
+    frame_poses = fixtures.make_trajectory(N_FRAMES + 1, speed=8.0,
+                                           seed=SEED + 2)
+    T_w_cams = [frame_poses[i] @ np.linalg.inv(T_cv4) for i in range(2)]
+    t0 = time.perf_counter()
+    fixtures.render_camera(world, T_w_cams[0], P, IMG_H, IMG_W)
+    numpy_image_s = time.perf_counter() - t0
+
+    # (c) The card against the port's CPU on frames 0-1 of both.
+    sweep, warm = {}, {}
+    for where in (dev, "cpu"):
+        with _time_calls(warm, (fixtures_accel, "_sweep_hits")):
+            sweep[str(where)] = fixtures_accel.simulate_sweep_batch(
+                world, poses[:3], RINGS, AZ, 2.0, -24.8, 80.0, device=where)
+        if where is dev:  # the card warm: copies in and out included
+            warm_raycast_s = warm.pop("_sweep_hits") / 2
+    t_card, dirs_s = sweep[str(dev)]
+    t_cpu = sweep["cpu"][0]
+    t_bitwise = np.array_equal(t_card, t_cpu)
+    for i in range(2):  # the drive of (a) is these hit distances
+        if not np.array_equal(fixtures_accel.finish_scan(
+                t_card[i], dirs_s, None, 0.0), scans[i][masks[i]]):
+            raise AssertionError(f"fixtures-accel: frame {i} of the drive "
+                                 "is not its raycast")
+    scans_bitwise = all(np.array_equal(
+        fixtures_accel.finish_scan(t_card[i], dirs_s, None, 0.0),
+        fixtures_accel.finish_scan(t_cpu[i], dirs_s, None, 0.0))
+        for i in range(2))
+    img_card = fixtures_accel.render_batch(world, T_w_cams, P, IMG_H, IMG_W,
+                                           device=dev)
+    img_cpu = fixtures_accel.render_batch(world, T_w_cams, P, IMG_H, IMG_W,
+                                          device="cpu")
+    di = np.abs(img_card - img_cpu)
+    card_cpu = {"t_bitwise": t_bitwise, "t_max_abs_diff": float(np.max(
+        np.abs(np.where(np.isfinite(t_card), t_card, 0.0)
+               - np.where(np.isfinite(t_cpu), t_cpu, 0.0)))),
+        "t_inf_equal": bool(np.array_equal(np.isinf(t_card),
+                                           np.isinf(t_cpu))),
+        "scans_bitwise": scans_bitwise,
+        "images_max_abs_diff": float(di.max()),
+        "images_pixels_differ": int((di > 0).sum()),
+        "images_pixels": int(di.size),
+        "warm_card_raycast_s_per_frame": warm_raycast_s,
+        "cpu_raycast_s_per_frame": warm["_sweep_hits"] / 2}
+    print(f"fixtures-accel: card against CPU on frames 0-1: {card_cpu}",
+          flush=True)
+    if not card_cpu["t_inf_equal"] or card_cpu["t_max_abs_diff"] > 1e-3:
+        raise AssertionError(f"fixtures-accel: card and CPU disagree: "
+                             f"{card_cpu}")
+
+    # (d) Odometry on the accelerated drive, held to long-drive's gates.
+    cfg = longrun.run_config("base", RINGS, AZ, prebin=True)
+    grids, valid = longrun.prebin(scans, masks, cfg.lidar)
+    scans_d = torch.as_tensor(grids).to(dev)
+    masks_d = torch.as_tensor(valid).to(dev)
+    dist_topk.launches = 0
+    track_level0.launches = 0
+    _, out, secs = longrun.run_drive(cfg, scans_d, masks_d)
+    launches = {"dist_topk": dist_topk.launches,
+                "klt_l0": track_level0.launches}
+    _expect_launches("fixtures-accel", launches, 4, 0)
+    est = out.T_w.cpu().numpy()
+    if not np.all(np.isfinite(est)) or est.shape != (LONG_FRAMES, 4, 4):
+        raise AssertionError(f"fixtures-accel: bad poses: shape {est.shape}")
+    row, _, _ = longrun.metrics_row("base", SEED, est, gt_velo, gt_cam, T_cv,
+                                    out.degenerate.cpu().numpy(), secs)
+    print(f"fixtures-accel: {LONG_FRAMES} frames of seed {SEED} at {RINGS} "
+          f"x {AZ} raycast on the card (fixture sha256 {digest[:16]}, "
+          f"generator {generator}): seconds "
+          f"{json.dumps(drive_split)}; the numpy generator "
+          f"{numpy_frame_s:.2f} s per frame on the host; against the numpy "
+          f"drive {drive_close}; the fused fixture ({N_FRAMES} frames, "
+          f"{IMG_H} x {IMG_W}): seconds {json.dumps(frames_split)}, scans "
+          f"{frames_close}, images {images}, numpy {numpy_image_s:.2f} s "
+          f"per image; odometry row {json.dumps(row)}, wrapper calls "
+          f"{launches} on {smi}", flush=True)
+    if (row["med_rel_err_m"] > GATE_LONG_MED_REL_M
+            or row["ate_m"] > GATE_LONG_ATE_M):
+        raise AssertionError(
+            f"fixtures-accel: median relative error {row['med_rel_err_m']} "
+            f"m (gate {GATE_LONG_MED_REL_M}) or ATE {row['ate_m']} m (gate "
+            f"{GATE_LONG_ATE_M})")
+    return {"frames": LONG_FRAMES, "seed": SEED, "fixture_sha256": digest,
+            "generator": generator, "drive_seconds": drive_split,
+            "numpy_seconds_per_frame": numpy_frame_s,
+            "drive_vs_numpy": drive_close, "fused_fixture_seconds":
+            frames_split, "fused_scans_vs_numpy": frames_close,
+            "images_vs_numpy": images,
+            "numpy_seconds_per_image": numpy_image_s,
+            "card_vs_cpu_frames_0_1": card_cpu, "row": row,
+            "launches": launches}
+
+
 DIST_WORKER = r"""
 import datetime, pickle, sys
 sys.path.insert(0, {repo!r})
@@ -2170,8 +2406,13 @@ def main() -> int:
                                            dev, tmp, smi)
             runs["distributed"] = phase("distributed", distributed_phase,
                                         dev, inputs["lidar"], tmp, smi)
+        long_numpy = sims[3].result()
         runs["long-drive"] = phase("long-drive", long_drive, dev,
-                                   sims[3].result(), smi)
+                                   long_numpy, smi)
+        runs["fixtures-accel"] = phase("fixtures-accel",
+                                       fixtures_accel_phase, dev,
+                                       long_numpy, smi)
+        del long_numpy
         dk["per_shape"] += phase("batch dist_topk", batch_dist_topk, dev)
         kk["per_shape"] += phase("batch klt_l0", batch_klt_l0, dev,
                                  inputs["fused"])
@@ -2206,6 +2447,7 @@ def main() -> int:
                 **{f"batch-{mode}": run["launches"][name] for mode, run in
                    runs["batch-variants"].items()},
                 "long-drive": runs["long-drive"]["launches"][name],
+                "fixtures-accel": runs["fixtures-accel"]["launches"][name],
                 "cli-kitti": runs["cli-kitti"]["launches"][name],
                 "cli-variants": sum(v["launches"][name] for v in
                                     runs["cli-variants"].values())},

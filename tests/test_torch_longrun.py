@@ -7,7 +7,10 @@ The reference script is loaded by path.  Its fixture cache is a fixed
 into the test's own directory (:func:`_reference`), so both harnesses
 read one cached fixture there.  Tolerances:
 
-* fixtures: bitwise equal arrays;
+* fixtures: bitwise equal arrays; with ``VELO_FIX_ACCEL=1`` (both
+  harnesses' accelerated generators, on the CPU) the scans bitwise, the
+  images within 1.2e-7 on at most 1 % of pixels
+  (``test_torch_fixtures_accel.py``);
 * the map insert that overflows its ring: bitwise equal to JAX's;
 * one step from JAX's carry after the map wrapped: 1 cm / 0.05 deg, the
   one-step gate of ``test_torch_odometry.py``;
@@ -17,6 +20,7 @@ read one cached fixture there.  Tolerances:
 """
 import dataclasses
 import importlib.util
+import json
 import math
 import os
 import sys
@@ -249,3 +253,91 @@ def test_harness_rows_match_reference(tmp_path, monkeypatch, capsys):
     capsys.readouterr()
     summarize.main([str(tmp_path / "trail.jsonl")])
     assert f"{SMALL_MAP}" in capsys.readouterr().out
+
+
+# The accelerated generator (VELO_FIX_ACCEL=1).  The reference tags its
+# cache file with its JAX backend; these are every name it can give.
+REFERENCE_BACKENDS = ("cpu", "gpu", "tpu")
+
+
+@pytest.mark.parametrize("switch", [None, "0"])
+@pytest.mark.parametrize("kw", [
+    {}, {"distorted": False},
+    {"with_images": True, "noise_std": 0.02, "dropout": 0.1},
+    {"sixdof": True, "world": "suburban"},
+], ids=["canyon", "nodistort", "images-noise-dropout", "sixdof-suburban"])
+def test_numpy_cache_names_unchanged(monkeypatch, switch, kw):
+    """With the switch off (unset or not "1") every cache file keeps the
+    numpy name the reference gives, and needs no device."""
+    if switch is None:
+        monkeypatch.delenv("VELO_FIX_ACCEL", raising=False)
+    else:
+        monkeypatch.setenv("VELO_FIX_ACCEL", switch)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = dict(frames=150, rings=64, az=2048, seed=2, **kw)
+    tag = ("" if kw.get("distorted", True) else "_nodist") + (
+        "_img" if kw.get("with_images") else "")
+    tag += "_n0.02_d0.1" if kw.get("noise_std") else ""
+    tag += "_6dof_suburban" if kw.get("sixdof") else ""
+    assert longrun.fixture_path(cache_dir="/c", **args) == \
+        f"/c/velo_longrun_150_64_2048_2{tag}.npz"
+    assert longrun.generator(None, kw.get("distorted", True)) == "numpy"
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"with_images": True, "noise_std": 0.02, "dropout": 0.1}],
+    ids=["canyon", "images-noise-dropout"])
+def test_accel_fixture_against_reference(tmp_path, monkeypatch, kw):
+    """With the switch on, both harnesses simulate a tiny drive on the CPU:
+    the port's file is tagged ``_accel-torch-cpu`` and never bears a name
+    the reference can give; its scans equal the reference's accelerated
+    ones bit for bit (images within ``test_torch_fixtures_accel.py``'s
+    render tolerance), and it reads back equal."""
+    monkeypatch.delenv("VELO_FIX_ACCEL", raising=False)
+    args = dict(frames=2, rings=16, az=256, seed=SEED, **kw)
+    numpy_name = os.path.basename(longrun.fixture_path(cache_dir="", **args))
+    monkeypatch.setenv("VELO_FIX_ACCEL", "1")
+    port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
+    ref_dir.mkdir()
+    ours = longrun.get_fixture(cache_dir=str(port_dir), device="cpu", **args)
+    theirs = _reference(str(ref_dir)).get_fixture(**args)
+    name = os.listdir(port_dir)
+    assert name == [numpy_name.replace(".npz", "_accel-torch-cpu.npz")]
+    assert name[0] == os.path.basename(longrun.fixture_path(
+        cache_dir="", device="cpu", **args))
+    assert os.listdir(ref_dir) == [
+        numpy_name.replace(".npz", "_accel-cpu.npz")]
+    assert name[0] not in {numpy_name.replace(".npz", f"_accel-{b}.npz")
+                           for b in REFERENCE_BACKENDS} | {numpy_name}
+    again = longrun.get_fixture(cache_dir=str(port_dir), device="cpu", **args)
+    for i, (a, b, c) in enumerate(zip(ours, theirs, again)):
+        if b is None:
+            assert a is None and c is None
+            continue
+        np.testing.assert_array_equal(c, a)
+        if i == 5:  # images
+            d = np.abs(a - b)
+            assert d.max() <= 1.2e-7 and (d > 0).mean() <= 0.01
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("nodistort", [False, True])
+def test_trail_names_the_generator(tmp_path, monkeypatch, nodistort):
+    """The trail row's ``generator`` is ``accel-torch-cpu`` with the
+    switch on, and "numpy" on the undistorted branch, which is always
+    simulated with numpy (as the reference does); its digest is the
+    cached drive's."""
+    monkeypatch.setenv("VELO_FIX_ACCEL", "1")
+    trail = tmp_path / "trail.jsonl"
+    flags = ["--frames", "2", "--rings", "16", "--azimuth", "256",
+             "--seeds", str(SEED), "--device", "cpu", "--cache-dir",
+             str(tmp_path), "--trail", str(trail)]
+    longrun.main(flags + (["--nodistort"] if nodistort else []))
+    row = json.loads(trail.read_text().splitlines()[-1])
+    assert row["generator"] == ("numpy" if nodistort else "accel-torch-cpu")
+    kw = dict(frames=2, rings=16, az=256, seed=SEED,
+              distorted=not nodistort, cache_dir=str(tmp_path), device="cpu")
+    assert os.path.exists(longrun.fixture_path(**kw))
+    scans, masks = longrun.get_fixture(**kw)[:2]
+    assert row["fixture_sha256"] == longrun.fixture_digest(scans, masks)

@@ -193,8 +193,9 @@ def test_fused_frames_end_to_end(fused_frames, fused_reference):
 def test_import_leaves_jax_out(tmp_path):
     """The port runs a fixture, one fused CPU step, the KITTI metric and
     the long-drive harness (a cached fixture, a scored trajectory, a run)
-    without loading JAX or any file of ``velo_tpu/``, and its fixtures
-    ignore ``VELO_FIX_ACCEL=1``."""
+    without loading JAX or any file of ``velo_tpu/``; with
+    ``VELO_FIX_ACCEL=1`` its fixtures raycast through the port's own
+    ``io.fixtures_accel`` (here on the CPU), never the reference's."""
     code = (
         "import dataclasses, os, sys\n"
         "import numpy as np, torch\n"
@@ -207,7 +208,7 @@ def test_import_leaves_jax_out(tmp_path):
         "cfg = dataclasses.replace(cfg, prebin_host=True, vision="
         "dataclasses.replace(cfg.vision, klt_impl='pallas'))\n"
         "fx = vt.fixtures.make_fixture(n_frames=1, n_rings=32, "
-        "n_azimuth=1024, height=128, width=384, seed=5)\n"
+        "n_azimuth=1024, height=128, width=384, seed=5, device='cpu')\n"
         "cam = camera.from_numpy(fx.P, fx.T_cam_velo, 384, 128)\n"
         "frame = rangeimage.bin_scan_host(fx.scans[0], cfg.lidar) "
         "+ (fx.images[0],)\n"
@@ -218,7 +219,8 @@ def test_import_leaves_jax_out(tmp_path):
         "np.stack([np.eye(4)] * 3))\n"
         "from velo_tpu_torch.evaluation import longrun\n"
         "s, m, gv, gc, tcv, _, _ = longrun.get_fixture(2, 16, 256, seed=5, "
-        "cache_dir=%r)\n"
+        "cache_dir=%r, device='cpu')\n"
+        "assert 'velo_tpu_torch.io.fixtures_accel' in sys.modules\n"
         "row, _, _ = longrun.metrics_row('base', 5, gv, gv, gc, tcv, "
         "np.zeros(2, bool), 1.0)\n"
         "assert row['ate_m'] == 0.0 and row['med_rel_err_m'] == 0.0, row\n"

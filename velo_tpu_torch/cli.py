@@ -8,8 +8,10 @@
 Writes ``<out>/<seq>.txt`` in KITTI 3x4 row-major format and, when ground
 truth is available, prints the official drift metric.  Runs on the card
 unless ``--device cpu`` is given; without a card and without that flag it
-raises.  ``python -m velo_tpu_torch.io.fake_kitti --out DIR`` exports a
-simulated drive in the KITTI layout for ``--kitti-root DIR``.
+raises.  With ``VELO_FIX_ACCEL=1`` a ``--synthetic`` drive (or batch) is
+raycast on the run's device (``io.fixtures_accel``) instead of by the
+numpy simulator.  ``python -m velo_tpu_torch.io.fake_kitti --out DIR``
+exports a simulated drive in the KITTI layout for ``--kitti-root DIR``.
 """
 from __future__ import annotations
 
@@ -147,7 +149,8 @@ def batch_inputs(args, device) -> BatchInputs:
     for b in range(args.batch):
         fx = fixtures.make_fixture(n_frames=args.frames, n_rings=rings,
                                    n_azimuth=az, with_images=use_vision,
-                                   height=h, width=w, seed=100 + b)
+                                   height=h, width=w, seed=100 + b,
+                                   device=device)
         padded = [_lidar_frame(s) for s in fx.scans]
         scans.append(np.stack([p[0] for p in padded]))
         masks.append(np.stack([p[1] for p in padded]))
@@ -252,7 +255,8 @@ def main(argv=None):
                             wiggle_scale=0.0)
         fx = fixtures.make_fixture(
             n_frames=args.frames, n_rings=rings, n_azimuth=az, height=h,
-            width=w, with_images=use_vision, seed=args.seed, **world_kw)
+            width=w, with_images=use_vision, seed=args.seed, device=device,
+            **world_kw)
         cam = cam_mod.from_numpy(fx.P, fx.T_cam_velo, w, h,
                                  device) if use_vision else None
 

@@ -16,7 +16,10 @@ The numpy generator's cache file is the reference's
 (``<cache-dir>/velo_longrun_{frames}_{rings}_{az}_{seed}{tag}.npz``, by
 default in ``/tmp``), so both harnesses read one shared fixture.  Seeds
 that are not cached yet are simulated in parallel, one spawned worker
-process each.  Without a card, and without ``--device cpu``, it raises.
+process each.  With ``VELO_FIX_ACCEL=1`` the distorted drives are raycast
+on the run's device instead (``io.fixtures_accel``), one after another in
+this process, and cached as ``..._accel-torch-<device type>.npz``.
+Without a card, and without ``--device cpu``, it raises.
 """
 from __future__ import annotations
 
@@ -35,11 +38,34 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
+def accelerated(distorted=True) -> bool:
+    """Whether :func:`get_fixture` raycasts on the device
+    (``VELO_FIX_ACCEL=1``); the undistorted branch is always numpy, as in
+    the reference."""
+    return distorted and os.environ.get("VELO_FIX_ACCEL") == "1"
+
+
+def generator(device=None, distorted=True) -> str:
+    """The name of the drive simulator :func:`get_fixture` runs: "numpy",
+    or "accel-torch-<device type>" with ``VELO_FIX_ACCEL=1``.  The
+    reference names its own "accel-<JAX backend>"; the two never share a
+    cache file."""
+    if not accelerated(distorted):
+        return "numpy"
+    from velo_tpu_torch.pipeline.odometry import resolve_device
+
+    return f"accel-torch-{resolve_device(device).type}"
+
+
 def fixture_path(frames, rings, az, seed=0, distorted=True,
                  with_images=False, noise_std=0.0, dropout=0.0,
-                 sixdof=False, world="canyon", cache_dir=CACHE_DIR) -> str:
+                 sixdof=False, world="canyon", cache_dir=CACHE_DIR,
+                 device=None) -> str:
     """The cache file of :func:`get_fixture`: the reference's name for
-    the numpy generator."""
+    the numpy generator, tagged with the generator otherwise (the
+    accelerated raycast matches numpy only to float32 tolerance, and 150
+    frames of odometry amplify that into drift differences of
+    1-2 %/100 m: one must never be read as the other)."""
     tag = ("" if distorted else "_nodist") + ("_img" if with_images else "")
     if noise_std:
         tag += f"_n{noise_std:g}"
@@ -49,20 +75,25 @@ def fixture_path(frames, rings, az, seed=0, distorted=True,
         tag += "_6dof"
     if world != "canyon":
         tag += f"_{world}"
+    if accelerated(distorted):
+        tag += f"_{generator(device)}"
     return os.path.join(cache_dir,
                         f"velo_longrun_{frames}_{rings}_{az}_{seed}{tag}.npz")
 
 
 def get_fixture(frames, rings, az, seed=0, distorted=True,
                 with_images=False, noise_std=0.0, dropout=0.0,
-                sixdof=False, world="canyon", cache_dir=CACHE_DIR):
+                sixdof=False, world="canyon", cache_dir=CACHE_DIR,
+                device=None):
     """(scans, masks, gt_velo, gt_cam, T_cam_velo, images or None, P or
     None) of a simulated drive, padded to ``rings * az`` points: loaded
-    from the cache file when it exists, else simulated and cached."""
+    from the cache file when it exists, else simulated and cached.
+    ``device``: where ``VELO_FIX_ACCEL=1`` raycasts (default: the card)."""
     from velo_tpu_torch.io import fixtures, kitti
 
     cache = fixture_path(frames, rings, az, seed, distorted, with_images,
-                         noise_std, dropout, sixdof, world, cache_dir)
+                         noise_std, dropout, sixdof, world, cache_dir,
+                         device)
     # Bumpy-road excitation: ~1.7deg pitch, ~1.1deg roll, 6cm z bobbing.
     sixdof_kw = (dict(pitch_amp=0.03, roll_amp=0.02, z_amp=0.06)
                  if sixdof else {})
@@ -78,13 +109,14 @@ def get_fixture(frames, rings, az, seed=0, distorted=True,
                 d["images"] if with_images else None,
                 d["P"] if "P" in d else None)
     print(f"simulating {frames} frames at {rings}x{az}…", file=sys.stderr)
+    t0 = time.perf_counter()
     if distorted:
         fx = fixtures.make_fixture(n_frames=frames, n_rings=rings,
                                    n_azimuth=az, with_images=with_images,
                                    height=128, width=384,
                                    speed=8.0, seed=seed,
                                    noise_std=noise_std, dropout=dropout,
-                                   **sixdof_kw)
+                                   device=device, **sixdof_kw)
         raw, gt_velo, gt_cam, T_cv = (fx.scans, fx.gt_poses_velo,
                                       fx.gt_poses_cam, fx.T_cam_velo)
     else:
@@ -102,6 +134,7 @@ def get_fixture(frames, rings, az, seed=0, distorted=True,
         T0 = gt_velo[0] @ np.linalg.inv(T_cv)
         gt_cam = np.einsum("ij,fjk,kl->fil", np.linalg.inv(T0), gt_velo,
                            np.linalg.inv(T_cv))
+    t_sim = time.perf_counter() - t0
     padded = [kitti.pad_scan(s, n_max) for s in raw]
     scans = np.stack([p[0] for p in padded])
     masks = np.stack([p[1] for p in padded])
@@ -115,6 +148,11 @@ def get_fixture(frames, rings, az, seed=0, distorted=True,
                         gt_velo=gt_velo, gt_cam=gt_cam, T_cam_velo=T_cv,
                         **extra)
     os.replace(part, cache)
+    secs = time.perf_counter() - t0
+    print(f"simulated {os.path.basename(cache)} with "
+          f"{generator(device, distorted)} in {secs:.2f} s: {t_sim:.2f} s "
+          f"simulating, {secs - t_sim:.2f} s padding and writing",
+          file=sys.stderr)
     return (scans, masks, gt_velo, gt_cam, T_cv,
             extra.get("images"), extra.get("P"))
 
@@ -129,8 +167,12 @@ def simulate(kws) -> None:
     """Cache the drives of :func:`get_fixture` keyword sets ``kws`` that
     are not cached yet: one spawned worker process each (at most one per
     core), since one 150-frame 64 x 2048 drive takes minutes on a core.
-    The arrays do not depend on the process that simulates them."""
-    todo = [kw for kw in kws if not os.path.exists(fixture_path(**kw))]
+    The arrays do not depend on the process that simulates them.  Drives
+    raycast on the device (``VELO_FIX_ACCEL=1``) are left to
+    :func:`get_fixture` in this process: a worker would make a CUDA
+    context of its own."""
+    todo = [kw for kw in kws if not accelerated(kw.get("distorted", True))
+            and not os.path.exists(fixture_path(**kw))]
     if len(todo) < 2:
         return
     import multiprocessing
@@ -282,7 +324,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dump", default=None,
                     help="write per-frame diagnostics .npz here")
     ap.add_argument("--nodistort", action="store_true",
-                    help="undistorted scans + deskew off (oracle ceiling)")
+                    help="undistorted scans + deskew off (oracle ceiling); "
+                    "always simulated with numpy, VELO_FIX_ACCEL or not")
     ap.add_argument("--vision", action="store_true",
                     help="fused pipeline (config 4) with rendered images")
     ap.add_argument("--noise", type=float, default=0.0,
@@ -308,7 +351,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "the reference harness's cache)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; raises without "
-                    "one unless 'cpu' is given)")
+                    "one unless 'cpu' is given); with VELO_FIX_ACCEL=1 "
+                    "the drives are also raycast there")
     return ap
 
 
@@ -326,7 +370,7 @@ def main(argv=None):
                       distorted=not args.nodistort, with_images=args.vision,
                       noise_std=args.noise, dropout=args.dropout,
                       sixdof=args.sixdof, world=args.world,
-                      cache_dir=args.cache_dir)
+                      cache_dir=args.cache_dir, device=dev)
     simulate([dict(fixture_kw, seed=s) for s in seeds])
 
     trail_meta = None
@@ -341,7 +385,7 @@ def main(argv=None):
             frames=args.frames, rings=args.rings, azimuth=args.azimuth,
             world=args.world, sixdof=args.sixdof, vision=args.vision,
             noise=args.noise, dropout=args.dropout, prebin=args.prebin,
-            generator="numpy",
+            generator=generator(dev, not args.nodistort),
             platform=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                       else dev.type),
             ts=time.strftime("%Y-%m-%dT%H:%M:%S"),

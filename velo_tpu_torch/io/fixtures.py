@@ -18,11 +18,14 @@ KITTI frame conventions are respected: velodyne x-forward/y-left/z-up, camera
 z-forward/x-right/y-down, ``Tr`` = velo->cam.
 
 The port's own copy of ``velo_tpu/io/fixtures.py``, numpy only; the tests
-hold the two bitwise equal.  The reference's ``VELO_FIX_ACCEL`` switch to
-its JAX raycaster is left out: this copy always runs the numpy simulator.
+hold the two bitwise equal.  With ``VELO_FIX_ACCEL=1``, as in the
+reference, :func:`make_fixture` raycasts through
+:mod:`velo_tpu_torch.io.fixtures_accel` instead: the same slab algorithm
+in float32 torch on ``device`` (default: the card).
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -441,13 +444,16 @@ def make_fixture(
     dropout: float = 0.0,
     beam_elev: Optional[np.ndarray] = None,
     az_start: float = 0.0,
+    device=None,
 ) -> Fixture:
     """Simulate a short KITTI-like drive with exact ground truth.
 
     ``noise_std`` adds Gaussian range noise (real HDL-64E: ~2 cm);
     ``dropout`` randomly deletes that fraction of returns (dark/specular
     surfaces); ``pitch_amp``/``roll_amp``/``z_amp`` excite the non-planar
-    DoF (see :func:`make_trajectory`).
+    DoF (see :func:`make_trajectory`).  ``device`` is where the raycasts
+    run with ``VELO_FIX_ACCEL=1`` (default: the card); the numpy path
+    ignores it.
     """
     world = world if world is not None else default_world(seed)
     rng = np.random.default_rng(seed + 1)
@@ -457,19 +463,46 @@ def make_fixture(
                             z_amp=z_amp, grade=grade)
     P, T_cam_velo = default_calib(height, width)
 
+    # VELO_FIX_ACCEL=1: run the slab raycasts in torch on ``device`` (all
+    # scans, then all images) instead of per-frame numpy: same algorithm in
+    # float32, same host RNG consumption order (noise then dropout, per
+    # frame).  The numpy path stays the default so the tests keep their
+    # exact bits.
+    accel = os.environ.get("VELO_FIX_ACCEL") == "1"
+    if accel:
+        from velo_tpu_torch.io import fixtures_accel
+
+        t_all, dirs_s = fixtures_accel.simulate_sweep_batch(
+            world, poses[: n_frames + 1], n_rings, n_azimuth,
+            elev_max_deg=2.0, elev_min_deg=-24.8, max_range=80.0,
+            beam_elev=beam_elev, az_start=az_start, device=device)
+        if with_images:
+            T_w_cams = [poses[i] @ np.linalg.inv(T_cam_velo)
+                        for i in range(n_frames)]
+            imgs_all = fixtures_accel.render_batch(world, T_w_cams, P,
+                                                   height, width,
+                                                   device=device)
+
     scans, images = [], []
     for i in range(n_frames):
-        scan = simulate_velodyne(
-            world, poses[i], poses[i + 1], n_rings=n_rings,
-            n_azimuth=n_azimuth, rng=rng, noise_std=noise_std,
-            beam_elev=beam_elev, az_start=az_start,
-        )
+        if accel:
+            scan = fixtures_accel.finish_scan(t_all[i], dirs_s, rng,
+                                              noise_std)
+        else:
+            scan = simulate_velodyne(
+                world, poses[i], poses[i + 1], n_rings=n_rings,
+                n_azimuth=n_azimuth, rng=rng, noise_std=noise_std,
+                beam_elev=beam_elev, az_start=az_start,
+            )
         if dropout > 0:
             scan = scan[rng.uniform(size=len(scan)) >= dropout]
         scans.append(scan)
         if with_images:
-            T_w_cam = poses[i] @ np.linalg.inv(T_cam_velo)
-            images.append(render_camera(world, T_w_cam, P, height, width))
+            if accel:
+                images.append(imgs_all[i])
+            else:
+                T_w_cam = poses[i] @ np.linalg.inv(T_cam_velo)
+                images.append(render_camera(world, T_w_cam, P, height, width))
 
     gt_velo = poses[:n_frames]
     # KITTI evaluates in the cam0 frame of the first camera pose.
