@@ -51,8 +51,6 @@ Phases, each of which raises (and so exits non-zero) on failure:
    on the card and against the CPU runs of 5 and 7; launches per replayed
    frame from a profile; graphs captured and their seconds; warm frames/s,
    host ms per frame and the card's busy share, captured beside eager;
-7c. stage split: ``profiling.StageTimer`` over the fused step's LiDAR and
-   visual front ends and the whole (eager) step, ms per frame;
 8. export: ``io.fake_kitti.export`` writes 4 full-scale frames (HDL-64E
    beam table, sweep start at the rear) as a KITTI sequence directory; the
    scans and PNGs read back equal to what was written;
@@ -648,12 +646,15 @@ def _device_time(prof):
     from the raw Kineto events: ``prof.events()`` would first build a
     Python object for each of the ~0.5 million events of a profiled step,
     which took a minute a frame on the card's host.  The profiler sees the
-    kernels inside a replayed CUDA graph one by one."""
+    kernels inside a replayed CUDA graph one by one.  The device-side copy
+    of a program's ``velo.*`` profiler range spans the work it launched
+    and is not counted."""
     busy, n = 0.0, 0
     own = {"klt_l0": 0.0, "dist_topk": 0.0}
     count = {"klt_l0": 0, "dist_topk": 0}
     for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+        if (ev.device_type() == torch.autograd.DeviceType.CUDA
+                and not ev.name().startswith("velo.")):
             dt = ev.duration_ns() * 1e-9
             busy += dt
             n += 1
@@ -924,54 +925,6 @@ def run_scan_phase(dev, fx, grids, cpu_poses, smi) -> dict:
               f"{eager_p['device_s'] / 2:.4f} s per frame, on {smi}",
               flush=True)
     return out
-
-
-def stage_split(dev, fx, grids, smi) -> dict:
-    """``profiling.StageTimer`` over the fused cell's layers (PERF.md §3),
-    frame by frame from the carries of a card run: the LiDAR front end
-    (range image from the grid, curvature, features), the visual front
-    end (pyramid, KLT, track table, pre-gate; depth association and
-    corners) and the whole step.  Each stage starts on an idle card and
-    ends fenced, so its time is the host's dispatch and the card's work
-    together."""
-    from velo_tpu_torch.evaluation.profiling import StageTimer
-    from velo_tpu_torch.geom import camera, se3
-    from velo_tpu_torch.lidar import rangeimage as ri_mod
-    from velo_tpu_torch.pipeline import odometry
-
-    cfg, _ = _cell_config("fused")
-    cam = camera.from_numpy(fx.P, fx.T_cam_velo, IMG_W, IMG_H, dev)
-    frames = [tuple(torch.as_tensor(np.asarray(x)).to(dev) for x in
-                    (g[0], g[1], img)) for g, img in zip(grids, fx.images)]
-    carries = [odometry.init_carry(cfg, dev)]
-    for scan, mask, img in frames[:-1]:
-        carries.append(odometry.step(carries[-1], scan, mask, cfg,
-                                     image=img, cam=cam)[0])
-    timer = StageTimer()
-    for warm in (True, False):  # a pass to warm up, then the timed pass
-        t = StageTimer() if warm else timer
-        for carry, (scan, mask, img) in zip(carries, frames):
-            torch.cuda.synchronize()
-            out = []
-            with t.stage("LiDAR front end", out):
-                ri = ri_mod.range_image_from_grid(scan, mask, carry.delta,
-                                                  cfg.lidar, enabled=True)
-                out.append(odometry._extract_features_from_ri(ri, cfg))
-            torch.cuda.synchronize()
-            with t.stage("Visual front end", out):
-                vf = odometry._visual_front_end(carry, img, cam,
-                                                se3.exp(carry.delta), cfg)
-                out.append(odometry._visual_bookkeeping(ri, vf[2], img, cam,
-                                                        cfg))
-            torch.cuda.synchronize()
-            with t.stage("step", out):
-                out.append(odometry.step(carry, scan, mask, cfg, image=img,
-                                         cam=cam))
-    per_frame = {k: 1e3 * v / timer.counts[k] for k, v in
-                 timer.totals.items()}
-    print(f"stage split (fused, {N_FRAMES} frames, fenced ms/frame) on "
-          f"{smi}:\n{timer.report()}", flush=True)
-    return per_frame
 
 
 def _cpu_compare(mode, frames, cfg, cam, poses, diags) -> dict:
@@ -2387,8 +2340,6 @@ def main() -> int:
                                                 mode, fx, grids)
         runs["run-scan"] = phase("run-scan", run_scan_phase, dev, fx, grids,
                                  cpu_poses, smi)
-        runs["stage-split"] = phase("stage split", stage_split, dev, fx,
-                                    grids, smi)
         for mode in ("fused", "fused-gather", "lidar", *VARIANTS):
             print(f"{mode} 64x2048 warm pass: {runs[mode]['fps']:.3f} "
                   f"frames/s on {smi}", flush=True)

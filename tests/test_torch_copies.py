@@ -1,10 +1,9 @@
 """The port's own copies of the reference's framework-free modules
 (``config``, ``io/fixtures``, ``evaluation/kitti_metric``, ``io/kitti``,
-``native/veloio.cpp``, ``evaluation/plots``, ``profiling.FrameLog``)
-held equal to their originals: the two packages share one tuning surface,
-one drive simulator, one drift metric, one set of KITTI file formats, one
-native scan loader and one set of plots without the port importing
-``velo_tpu``.
+``native/veloio.cpp``, ``evaluation/plots``) held equal to their
+originals: the two packages share one tuning surface, one drive
+simulator, one drift metric, one set of KITTI file formats, one native
+scan loader and one set of plots without the port importing ``velo_tpu``.
 """
 import ast
 import dataclasses
@@ -155,10 +154,3 @@ def test_plot_trajectory_source_equal_but_its_import():
     assert ours == theirs.replace(line, line.replace("velo_tpu.",
                                                      "velo_tpu_torch."))
 
-
-def test_frame_log_source_equal():
-    from velo_tpu.evaluation import profiling as jprof
-    from velo_tpu_torch.evaluation import profiling as tprof
-
-    assert inspect.getsource(tprof.FrameLog) == inspect.getsource(
-        jprof.FrameLog)

@@ -1,64 +1,122 @@
-"""Tracing / profiling utilities (port of
-``velo_tpu/evaluation/profiling.py``).
+"""Tracing / profiling of the port: stage marks, spans, counters and a
+Chrome-trace exporter.
 
-  * ``StageTimer`` -- host wall clock per pipeline stage, fenced: a stage
-    given CUDA tensors ends in ``torch.cuda.synchronize()``, so its time
-    includes the card's work and not only the enqueue;
+  * ``stage(name)`` -- one stage of the odometry step (``STAGES``).  While
+    the current stream is being captured into a CUDA graph it enqueues the
+    stage's mark, an empty kernel ``velo_stage_<name>``
+    (``csrc/stage_mark.cu``), so that every replay of the graph shows on
+    the device trace's clock where each stage begins: a mark opens a stage
+    and the stage lasts until the next mark (leaving a nested stage
+    re-enqueues the enclosing one's mark).  ``stage_end()`` enqueues
+    ``velo_stage_end`` at the end of a captured step.  Outside a capture
+    (the eager step, the CPU) a stage is a ``torch.profiler`` range
+    ``velo.stage.<name>``, opened only while a profiler is active;
+  * ``span(name)`` -- a ``record_function`` range, opened only while a
+    profiler is active (``velo.graphs.*``, ``velo.bin_scan_host``);
+  * ``add`` / ``counters()`` -- process-wide counters of host seconds
+    (``graphs.launch``: each unprofiled ``graph.replay()``);
   * ``trace`` -- context manager around ``torch.profiler`` that writes a
     Chrome trace (``chrome://tracing``, Perfetto) of the card's kernels and
-    the host's calls;
-  * ``FrameLog`` -- accumulates per-frame records (pose, correspondence
-    counts, solve cost, degeneracy flags) and dumps them to ``.npz``; a
-    copy of the reference's, pure numpy.
+    the host's calls.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import os
-import time
-from collections import defaultdict
-from typing import Dict, List
 
-import numpy as np
 import torch
 
+# The stages of ``odometry.step`` in the order they run, then the end mark;
+# index i is kernel i of ``csrc/stage_mark.cu``.
+STAGES = ("lidar_front", "vision_front", "solve", "search", "map_refine",
+          "map_update", "vision_book", "carry")
+MARKS = STAGES + ("end",)
+MARK_PREFIX = "velo_stage_"
 
-class StageTimer:
-    """Accumulating per-stage wall-clock timer (device-fenced)."""
+_open: list[str] = []  # the stages open in the capture, innermost last
+_mark_fn = None
+_counters: dict[str, list] = {}  # name -> [count, seconds]
 
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def stage(self, name: str, *fence):
-        """Time the ``with`` body.  ``fence``: tensors (or nested tuples
-        and lists of them) the body produces; when one lies on the card,
-        the stage waits for the card before it stops the clock."""
-        t0 = time.perf_counter()
+def profiler_active() -> bool:
+    """Whether a ``torch.profiler`` (or autograd profiler) is recording."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is being captured into a graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def launch_mark(name: str) -> None:
+    """Enqueue mark ``name`` (of ``MARKS``) on the current CUDA stream."""
+    global _mark_fn
+    if _mark_fn is None:
+        from velo_tpu_torch.kernels import _build
+
+        fn = _build.load("stage_mark").velo_stage_mark
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _mark_fn = fn
+    err = _mark_fn(MARKS.index(name), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stage mark {name}: CUDA error {err}")
+
+
+def warm_marks() -> None:
+    """Launch every mark once on the current stream, outside any capture:
+    loads their module, which a capture must not do lazily."""
+    for name in MARKS:
+        launch_mark(name)
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """A ``record_function`` range ``name`` while a profiler is active;
+    nothing otherwise."""
+    if not profiler_active():
         yield
-        if any(x.is_cuda for x in _tensors(fence)):
-            torch.cuda.synchronize()
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            n = max(self.counts[name], 1)
-            lines.append(
-                f"{name:24s} {self.totals[name]*1e3:9.2f} ms total  "
-                f"{self.totals[name]/n*1e3:8.3f} ms/call  x{n}"
-            )
-        return "\n".join(lines)
+        return
+    with torch.profiler.record_function(name):
+        yield
 
 
-def _tensors(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, (tuple, list)):
-        for x in tree:
-            yield from _tensors(x)
+@contextlib.contextmanager
+def stage(name: str):
+    """The ``with`` body as stage ``name`` of ``STAGES`` (module doc)."""
+    if not capturing():
+        with span(f"velo.stage.{name}"):
+            yield
+        return
+    launch_mark(name)
+    _open.append(name)
+    try:
+        yield
+    finally:
+        _open.pop()
+    if _open:
+        launch_mark(_open[-1])
+
+
+def stage_end() -> None:
+    """In a capture: enqueue the end mark, which closes the step's last
+    stage.  Nothing otherwise."""
+    if capturing():
+        launch_mark("end")
+
+
+def add(name: str, seconds: float) -> None:
+    """Count one event of ``name`` taking ``seconds``."""
+    c = _counters.setdefault(name, [0, 0.0])
+    c[0] += 1
+    c[1] += seconds
+
+
+def counters() -> dict[str, tuple[int, float]]:
+    """{name: (count, summed seconds)} since the process started."""
+    return {k: (n, s) for k, (n, s) in _counters.items()}
 
 
 @contextlib.contextmanager
@@ -76,22 +134,3 @@ def trace(logdir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-class FrameLog:
-    """Structured per-frame records -> single .npz artifact."""
-
-    def __init__(self):
-        self._rows: Dict[str, List] = defaultdict(list)
-
-    def add(self, **fields):
-        for k, v in fields.items():
-            self._rows[k].append(np.asarray(v))
-
-    def save(self, path: str):
-        np.savez_compressed(
-            path, **{k: np.stack(v) for k, v in self._rows.items()}
-        )
-
-    def as_dict(self):
-        return {k: np.stack(v) for k, v in self._rows.items()}

@@ -8,7 +8,8 @@ independent of the order of the updates and so deterministic), and
 ``range_image_from_grid`` deskews a grid that ``bin_scan_host`` filled on
 the host.  ``bin_scan_host`` is numpy code; the reference's copy cannot be
 shared because its module imports ``jax.numpy``, so it is repeated here
-line for line and the tests hold the two bitwise equal.
+line for line (as ``_bin_scan_host``) and the tests hold the two bitwise
+equal.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from velo_tpu_torch import fp
+from velo_tpu_torch.evaluation import profiling
 from velo_tpu_torch.lidar import deskew as deskew_mod
 
 _IDX_BITS = 17  # supports up to 131072 raw points
@@ -113,11 +115,17 @@ def build_range_image(pts: torch.Tensor, mask: torch.Tensor,
 
 
 def bin_scan_host(scan: np.ndarray, cfg):
-    """Host-side pre-binning of a raw scan into the (R, W) grid.
+    """Host-side pre-binning of a raw scan into the (R, W) grid, in the
+    profiler span ``velo.bin_scan_host`` while a profiler is active.
 
     Returns (grid (R, W, 5) float32 [x, y, z, range, phase] of the nearest
     raw return per cell, valid (R, W) bool).
     """
+    with profiling.span("velo.bin_scan_host"):
+        return _bin_scan_host(scan, cfg)
+
+
+def _bin_scan_host(scan: np.ndarray, cfg):
     R, W = cfg.n_rings, cfg.n_azimuth
     pts = np.asarray(scan[:, :3], np.float32)
     n = len(pts)

@@ -28,7 +28,16 @@ The carry a replay returns is the static carry itself (the reference's
 ``jit_step`` donates its carry the same way): the next call of the same
 configuration overwrites it.  A capture that fails raises, naming the
 line of the operation that refused it; nothing falls back to the eager
-step.  Both kernels' libraries are built before the first capture.
+step.  Both kernels' libraries and the stage marks' are built before the
+first capture, and every mark is launched once in the eager warm-up.
+
+Inside the capture the carry's write-back is the step's last stage
+(``carry``), and ``velo_stage_end`` closes the graph
+(``evaluation/profiling.py``).  While a profiler is active a call shows
+the host spans ``velo.graphs.copy_in``, ``velo.graphs.launch`` (the
+replay) and ``velo.graphs.result`` (the result's copy); while none is,
+the host seconds of each replay are counted in ``profiling.counters()``
+(``graphs.launch``), which ``release()`` does not clear.
 """
 from __future__ import annotations
 
@@ -39,6 +48,8 @@ from typing import Callable, NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
+
+from velo_tpu_torch.evaluation import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -135,30 +146,39 @@ class CapturedStep:
 
     def __call__(self, carry, *inputs):
         frame_host = carry.frame_host
-        if self._carry is None:
-            self._carry = clone(carry._replace(frame_host=None))
-            self._inputs = clone(inputs)
-        else:
-            _copy_in(self._carry, carry._replace(frame_host=None))
-            _copy_in(self._inputs, inputs)
+        with profiling.span("velo.graphs.copy_in"):
+            if self._carry is None:
+                self._carry = clone(carry._replace(frame_host=None))
+                self._inputs = clone(inputs)
+            else:
+                _copy_in(self._carry, carry._replace(frame_host=None))
+                _copy_in(self._inputs, inputs)
         key = self._cadence(frame_host)
         if key not in self._graphs:
             self._graphs[key] = self._capture(key, frame_host)
         graph, result = self._graphs[key]
-        graph.replay()
-        return (self._carry._replace(frame_host=frame_host + 1),
-                clone(result))
+        if profiling.profiler_active():
+            with profiling.span("velo.graphs.launch"):
+                graph.replay()
+        else:
+            t0 = time.perf_counter()
+            graph.replay()
+            profiling.add("graphs.launch", time.perf_counter() - t0)
+        with profiling.span("velo.graphs.result"):
+            out = clone(result)
+        return self._carry._replace(frame_host=frame_host + 1), out
 
     def _capture(self, key, frame_host):
         from velo_tpu_torch.kernels import _build
 
-        _build.build_all(["dist_topk", "klt_l0"])
+        _build.build_all(["dist_topk", "klt_l0", "stage_mark"])
         dev = _tensors(self._carry)[0].device
         carry = self._carry._replace(frame_host=frame_host)
         t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
+            profiling.warm_marks()
             self._fn(carry, *self._inputs)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
@@ -167,7 +187,9 @@ class CapturedStep:
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 new, result = self._fn(carry, *self._inputs)
-                _write_back(self._carry, new._replace(frame_host=None))
+                with profiling.stage("carry"):
+                    _write_back(self._carry, new._replace(frame_host=None))
+                profiling.stage_end()
         except Exception as err:
             raise RuntimeError(
                 f"CUDA-graph capture of {self.name} (cadence key {key}) "

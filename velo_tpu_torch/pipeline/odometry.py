@@ -29,6 +29,13 @@ the device and captures into a CUDA graph: on the card ``jit_step``,
 ``run_scan`` and ``run_sequence`` replay one graph per cadence key
 (``cadence_key``, ``pipeline/graphs.py``).  ``init_carry`` and
 ``run_sequence`` run on the card unless the caller passes another device.
+
+The step's blocks are the stages of ``evaluation/profiling.STAGES``
+(``profiling.stage``): lidar_front (1-2), vision_front (2v), solve (3,
+the plausibility gate included; ``icp.build_candidates`` nests a search
+stage wherever it runs), map_refine (4), map_update (5-7), vision_book
+(8).  In a captured graph each opens with a mark kernel, so the device
+trace times every stage of a replayed frame.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from velo_tpu_torch import fp
+from velo_tpu_torch.evaluation import profiling
 from velo_tpu_torch.geom import camera as cam_mod
 from velo_tpu_torch.geom import se3
 from velo_tpu_torch.lidar import curvature as curv_mod
@@ -285,216 +293,227 @@ def step(carry: OdomCarry, scan: torch.Tensor, scan_mask: torch.Tensor, cfg,
         raise ValueError("use_vision=True: step needs image= and cam=")
 
     # 1-2) Deskew with the predicted motion, then the LiDAR front end.
-    if cfg.prebin_host:
-        ri = ri_mod.range_image_from_grid(scan, scan_mask, carry.delta,
-                                          cfg.lidar, enabled=cfg.use_deskew)
-    else:
-        pts3, phase = deskew_mod.deskew(
-            scan[:, :3], carry.delta, az_start=cfg.lidar.az_start,
-            enabled=cfg.use_deskew)
-        ri = ri_mod.build_range_image(pts3, scan_mask, phase, cfg.lidar)
-    feats, tfeats = _extract_features_from_ri(ri, cfg)
-    T_pred = se3.exp(carry.delta)
+    with profiling.stage("lidar_front"):
+        if cfg.prebin_host:
+            ri = ri_mod.range_image_from_grid(
+                scan, scan_mask, carry.delta, cfg.lidar,
+                enabled=cfg.use_deskew)
+        else:
+            pts3, phase = deskew_mod.deskew(
+                scan[:, :3], carry.delta, az_start=cfg.lidar.az_start,
+                enabled=cfg.use_deskew)
+            ri = ri_mod.build_range_image(pts3, scan_mask, phase, cfg.lidar)
+        feats, tfeats = _extract_features_from_ri(ri, cfg)
+        T_pred = se3.exp(carry.delta)
+        vis = None
+        n_dep = torch.zeros((), dtype=torch.int32, device=dev)
+        w_scale = torch.ones((), device=dev)
 
     # 2v) Visual front end: pyramid, KLT, reprojection data.
-    vis = None
-    n_dep = torch.zeros((), dtype=torch.int32, device=dev)
-    w_scale = torch.ones((), device=dev)
     if cfg.use_vision:
-        cur_pyr, cur_grads, table, vis, n_dep, w_scale = _visual_front_end(
-            carry, image, cam, T_pred, cfg)
+        with profiling.stage("vision_front"):
+            cur_pyr, cur_grads, table, vis, n_dep, w_scale = _visual_front_end(
+                carry, image, cam, T_pred, cfg)
 
     # 3) Scan-to-scan solve vs the previous features, with one global
     # candidate search per target set shared by both solves (dense engine).
-    edge_targets = icp.make_targets(carry.prev_edges, carry.prev_edge_mask,
-                                    payload=carry.prev_edge_ring[:, None])
-    planar_targets = icp.make_targets(carry.prev_planars,
-                                      carry.prev_planar_mask)
-    if sc.nn_engine == "dense" and sc.reuse_candidates:
-        e_cands = icp.build_candidates(edge_targets, feats.edges,
-                                       feats.edge_mask, T_pred, sc)
-        p_cands = icp.build_candidates(planar_targets, feats.planars,
-                                       feats.planar_mask, T_pred, sc)
-    else:
-        e_cands = p_cands = None
-    # The motion prior applies once a velocity estimate exists.
-    prior_scale = (fi >= 2).to(torch.float32)
+    with profiling.stage("solve"):
+        edge_targets = icp.make_targets(carry.prev_edges, carry.prev_edge_mask,
+                                        payload=carry.prev_edge_ring[:, None])
+        planar_targets = icp.make_targets(carry.prev_planars,
+                                          carry.prev_planar_mask)
+        if sc.nn_engine == "dense" and sc.reuse_candidates:
+            e_cands = icp.build_candidates(edge_targets, feats.edges,
+                                           feats.edge_mask, T_pred, sc)
+            p_cands = icp.build_candidates(planar_targets, feats.planars,
+                                           feats.planar_mask, T_pred, sc)
+        else:
+            e_cands = p_cands = None
+        # The motion prior applies once a velocity estimate exists.
+        prior_scale = (fi >= 2).to(torch.float32)
 
-    def fix(pts, phase, mask, old, new):
-        return _masked(deskew_mod.redeskew(pts, phase, old, new), mask)
+        def fix(pts, phase, mask, old, new):
+            return _masked(deskew_mod.redeskew(pts, phase, old, new), mask)
 
-    def fix_feats(f, old, new):
-        return f._replace(
-            edges=fix(f.edges, f.edge_phase, f.edge_mask, old, new),
-            planars=fix(f.planars, f.planar_phase, f.planar_mask, old, new))
+        def fix_feats(f, old, new):
+            return f._replace(
+                edges=fix(f.edges, f.edge_phase, f.edge_mask, old, new),
+                planars=fix(f.planars, f.planar_phase, f.planar_mask, old,
+                            new))
 
-    if cfg.use_deskew and sc.ct_sweep:
-        # Continuous time: one 12-DoF solve of the pose and the scan's own
-        # sweep motion xi2 replaces the redeskew fixed point.
-        T_rel, xi2, diag = icp.solve_scan_to_scan_ct(
-            feats.edges, feats.edge_phase, feats.edge_mask, feats.planars,
-            feats.planar_phase, feats.planar_mask, edge_targets,
-            planar_targets, T_pred, carry.delta, sc, vis=vis,
-            edge_cands=e_cands, planar_cands=p_cands, prior_T=T_pred,
-            prior_scale=prior_scale)
-        # The sweep motion cannot leave the inter-frame motion by more than
-        # physical acceleration allows: clamp the deviation, so that a
-        # weakly observed xi2 cannot corrupt the stored features or map.
-        base = se3.log(T_rel)
-        dev2 = xi2 - base
-        dev2 = torch.cat([_limit_norm(dev2[:3], sc.max_accel_trans),
-                          _limit_norm(dev2[3:], sc.max_accel_rot)])
-        # Frames 0/1 have no correction reference: keep the identity
-        # re-correction so both scans carry matching distortion.
-        xi2 = torch.where(fi >= 2, base + dev2, carry.delta)
-        feats = fix_feats(feats, carry.delta, xi2)
-        tfeats = fix_feats(tfeats, carry.delta, xi2)
-        deskew_ref = None  # the features carry their final correction
-    else:
-        T_rel, diag = icp.solve_scan_to_scan(
-            feats.edges, feats.edge_mask, feats.planars, feats.planar_mask,
-            edge_targets, planar_targets, T_pred, sc, vis=vis,
-            edge_cands=e_cands, planar_cands=p_cands, prior_T=T_pred,
-            prior_scale=prior_scale)
-        deskew_ref = carry.delta
-    if cfg.use_deskew and not sc.ct_sweep:
-        # Deskew/solve fixed point: re-correct the features with the solved
-        # motion and solve again.  Frames 0/1 keep identity re-correction.
-        delta1 = torch.where(fi >= 2, se3.log(T_rel), carry.delta)
-        feats = fix_feats(feats, carry.delta, delta1)
-        tfeats = fix_feats(tfeats, carry.delta, delta1)
-        if sc.deskew_exact_lag and sc.exact_lag_targets:
-            # Exact one-frame-lag deskew of the targets: scan i-1's sweep
-            # spans poses i-1 -> i, so its true sweep motion is the delta
-            # solved now, not the one it was stored with (the identity
-            # under constant velocity).  The stored correction reference is
-            # carry.delta, the previous frame's realized motion.
-            edge_targets = icp.make_targets(
-                fix(carry.prev_edges, carry.prev_edge_phase,
-                    carry.prev_edge_mask, carry.delta, delta1),
-                carry.prev_edge_mask, payload=carry.prev_edge_ring[:, None])
-            planar_targets = icp.make_targets(
-                fix(carry.prev_planars, carry.prev_planar_phase,
-                    carry.prev_planar_mask, carry.delta, delta1),
-                carry.prev_planar_mask)
+        if cfg.use_deskew and sc.ct_sweep:
+            # Continuous time: one 12-DoF solve of the pose and the scan's own
+            # sweep motion xi2 replaces the redeskew fixed point.
+            T_rel, xi2, diag = icp.solve_scan_to_scan_ct(
+                feats.edges, feats.edge_phase, feats.edge_mask, feats.planars,
+                feats.planar_phase, feats.planar_mask, edge_targets,
+                planar_targets, T_pred, carry.delta, sc, vis=vis,
+                edge_cands=e_cands, planar_cands=p_cands, prior_T=T_pred,
+                prior_scale=prior_scale)
+            # The sweep motion cannot leave the inter-frame motion by more than
+            # physical acceleration allows: clamp the deviation, so that a
+            # weakly observed xi2 cannot corrupt the stored features or map.
+            base = se3.log(T_rel)
+            dev2 = xi2 - base
+            dev2 = torch.cat([_limit_norm(dev2[:3], sc.max_accel_trans),
+                              _limit_norm(dev2[3:], sc.max_accel_rot)])
+            # Frames 0/1 have no correction reference: keep the identity
+            # re-correction so both scans carry matching distortion.
+            xi2 = torch.where(fi >= 2, base + dev2, carry.delta)
+            feats = fix_feats(feats, carry.delta, xi2)
+            tfeats = fix_feats(tfeats, carry.delta, xi2)
+            deskew_ref = None  # the features carry their final correction
+        else:
+            T_rel, diag = icp.solve_scan_to_scan(
+                feats.edges, feats.edge_mask, feats.planars, feats.planar_mask,
+                edge_targets, planar_targets, T_pred, sc, vis=vis,
+                edge_cands=e_cands, planar_cands=p_cands, prior_T=T_pred,
+                prior_scale=prior_scale)
+            deskew_ref = carry.delta
+        if cfg.use_deskew and not sc.ct_sweep:
+            # Deskew/solve fixed point: re-correct the features with the solved
+            # motion and solve again.  Frames 0/1 keep identity re-correction.
+            delta1 = torch.where(fi >= 2, se3.log(T_rel), carry.delta)
+            feats = fix_feats(feats, carry.delta, delta1)
+            tfeats = fix_feats(tfeats, carry.delta, delta1)
+            if sc.deskew_exact_lag and sc.exact_lag_targets:
+                # Exact one-frame-lag deskew of the targets: scan i-1's sweep
+                # spans poses i-1 -> i, so its true sweep motion is the delta
+                # solved now, not the one it was stored with (the identity
+                # under constant velocity).  The stored correction reference is
+                # carry.delta, the previous frame's realized motion.
+                edge_targets = icp.make_targets(
+                    fix(carry.prev_edges, carry.prev_edge_phase,
+                        carry.prev_edge_mask, carry.delta, delta1),
+                    carry.prev_edge_mask,
+                    payload=carry.prev_edge_ring[:, None])
+                planar_targets = icp.make_targets(
+                    fix(carry.prev_planars, carry.prev_planar_phase,
+                        carry.prev_planar_mask, carry.delta, delta1),
+                    carry.prev_planar_mask)
 
-            def fix_cache(cands):
-                # The cache gathered target coordinates before this
-                # redeskew: re-correct them, with the phase recovered from
-                # the azimuth (as it was assigned, up to the sub-degree
-                # shift of the correction itself).
-                if cands is None:
-                    return None
-                flat = cands.pts.reshape(-1, 3)
-                ph = deskew_mod.azimuth_phase(flat,
-                                              az_start=cfg.lidar.az_start)
-                fixed = deskew_mod.redeskew(flat, ph, carry.delta, delta1)
-                return cands._replace(pts=fixed.reshape(cands.pts.shape))
+                def fix_cache(cands):
+                    # The cache gathered target coordinates before this
+                    # redeskew: re-correct them, with the phase recovered from
+                    # the azimuth (as it was assigned, up to the sub-degree
+                    # shift of the correction itself).
+                    if cands is None:
+                        return None
+                    flat = cands.pts.reshape(-1, 3)
+                    ph = deskew_mod.azimuth_phase(flat,
+                                                  az_start=cfg.lidar.az_start)
+                    fixed = deskew_mod.redeskew(flat, ph, carry.delta, delta1)
+                    return cands._replace(pts=fixed.reshape(cands.pts.shape))
 
-            e_cands, p_cands = fix_cache(e_cands), fix_cache(p_cands)
-        T_rel, diag = icp.solve_scan_to_scan(
-            feats.edges, feats.edge_mask, feats.planars, feats.planar_mask,
-            edge_targets, planar_targets, T_rel, sc, vis=vis,
-            iters=sc.icp_iters_redeskew, edge_cands=e_cands,
-            planar_cands=p_cands, prior_T=T_pred, prior_scale=prior_scale)
-        deskew_ref = delta1
+                e_cands, p_cands = fix_cache(e_cands), fix_cache(p_cands)
+            T_rel, diag = icp.solve_scan_to_scan(
+                feats.edges, feats.edge_mask, feats.planars, feats.planar_mask,
+                edge_targets, planar_targets, T_rel, sc, vis=vis,
+                iters=sc.icp_iters_redeskew, edge_cands=e_cands,
+                planar_cands=p_cands, prior_T=T_pred, prior_scale=prior_scale)
+            deskew_ref = delta1
 
-    # Plausibility gate: a motion far from the constant-velocity prediction
-    # means wrong correspondences; keep the prediction instead.
-    dev_xi = se3.log(se3.compose(se3.inv(se3.exp(carry.delta)), T_rel))
-    nt = fp.norm3(dev_xi[:3])
-    nr = fp.norm3(dev_xi[3:])
-    implausible = ((nt > sc.max_accel_trans) | (nr > sc.max_accel_rot)) & (
-        fi >= 2)
-    prior_active = ((nt > sc.prior_deadzone_trans)
-                    | (nr > sc.prior_deadzone_rot)) & (prior_scale > 0)
-    T_rel = torch.where(implausible, se3.exp(carry.delta), T_rel)
-    T_w = se3.compose(carry.T_w, T_rel)
+        # Plausibility gate: a motion far from the constant-velocity prediction
+        # means wrong correspondences; keep the prediction instead.
+        dev_xi = se3.log(se3.compose(se3.inv(se3.exp(carry.delta)), T_rel))
+        nt = fp.norm3(dev_xi[:3])
+        nr = fp.norm3(dev_xi[3:])
+        implausible = ((nt > sc.max_accel_trans) | (nr > sc.max_accel_rot)) & (
+            fi >= 2)
+        prior_active = ((nt > sc.prior_deadzone_trans)
+                        | (nr > sc.prior_deadzone_rot)) & (prior_scale > 0)
+        T_rel = torch.where(implausible, se3.exp(carry.delta), T_rel)
+        T_w = se3.compose(carry.T_w, T_rel)
 
     # 4) Scan-to-map refinement against the local map.
-    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    map_applied = torch.zeros((), dtype=torch.bool, device=dev)
-    lm_accept_map = zero_i
-    refine, maintain = cadence_key(cfg, carry.frame_host) or (False, False)
-    if cfg.use_map:
-        e_targets = icp.make_targets(carry.edge_map.pts, carry.edge_map.mask)
-        p_targets = icp.make_targets(carry.planar_map.pts,
-                                     carry.planar_map.mask)
-        has_map = (torch.sum(carry.edge_map.mask)
-                   + torch.sum(carry.planar_map.mask)) > 100
-        if refine:
-            T_map, diag_m = icp.solve_scan_to_map(
-                feats.edges, feats.edge_mask, feats.planars,
-                feats.planar_mask, e_targets, p_targets, T_w, sc,
-                prior_T=T_w, prior_scale=prior_scale)
-        else:  # refinement cadence: a skipped frame keeps its pose
-            T_map, diag_m = T_w, icp.SolveDiag(
-                n_edge=zero_i, n_planar=zero_i,
-                cost=torch.zeros((), device=dev),
-                degenerate=torch.ones((), dtype=torch.bool, device=dev),
-                lm_accept=zero_i)
-        corr = se3.log(se3.compose(se3.inv(T_w), T_map))
-        map_ok = ((fp.norm3(corr[:3]) < sc.max_map_corr_trans)
-                  & (fp.norm3(corr[3:]) < sc.max_map_corr_rot))
-        map_applied = has_map & ~diag_m.degenerate & map_ok
-        lm_accept_map = diag_m.lm_accept
-        T_w = torch.where(map_applied, T_map, T_w)
+    with profiling.stage("map_refine"):
+        zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+        map_applied = torch.zeros((), dtype=torch.bool, device=dev)
+        lm_accept_map = zero_i
+        refine, maintain = cadence_key(cfg, carry.frame_host) or (False, False)
+        if cfg.use_map:
+            e_targets = icp.make_targets(carry.edge_map.pts,
+                                         carry.edge_map.mask)
+            p_targets = icp.make_targets(carry.planar_map.pts,
+                                         carry.planar_map.mask)
+            has_map = (torch.sum(carry.edge_map.mask)
+                       + torch.sum(carry.planar_map.mask)) > 100
+            if refine:
+                T_map, diag_m = icp.solve_scan_to_map(
+                    feats.edges, feats.edge_mask, feats.planars,
+                    feats.planar_mask, e_targets, p_targets, T_w, sc,
+                    prior_T=T_w, prior_scale=prior_scale)
+            else:  # refinement cadence: a skipped frame keeps its pose
+                T_map, diag_m = T_w, icp.SolveDiag(
+                    n_edge=zero_i, n_planar=zero_i,
+                    cost=torch.zeros((), device=dev),
+                    degenerate=torch.ones((), dtype=torch.bool, device=dev),
+                    lm_accept=zero_i)
+            corr = se3.log(se3.compose(se3.inv(T_w), T_map))
+            map_ok = ((fp.norm3(corr[:3]) < sc.max_map_corr_trans)
+                      & (fp.norm3(corr[3:]) < sc.max_map_corr_rot))
+            map_applied = has_map & ~diag_m.degenerate & map_ok
+            lm_accept_map = diag_m.lm_accept
+            T_w = torch.where(map_applied, T_map, T_w)
 
     # 5) Velocity from the realized motion; the first frame keeps zero.
-    delta_new = se3.log(se3.compose(se3.inv(carry.T_w), T_w))
-    delta_new = torch.where(fi == 0, 0.0, delta_new)
+    with profiling.stage("map_update"):
+        delta_new = se3.log(se3.compose(se3.inv(carry.T_w), T_w))
+        delta_new = torch.where(fi == 0, 0.0, delta_new)
 
-    # 6) Re-correct the targets with the solved motion (the
-    # continuous-time path has corrected them already).
-    if cfg.use_deskew and deskew_ref is not None:
-        edges_fix = fix(tfeats.edges, tfeats.edge_phase, tfeats.edge_mask,
-                        deskew_ref, delta_new)
-        planars_fix = fix(tfeats.planars, tfeats.planar_phase,
-                          tfeats.planar_mask, deskew_ref, delta_new)
-    else:
-        edges_fix, planars_fix = tfeats.edges, tfeats.planars
-
-    # 7) Map update: insert world-frame features, maintain on a cadence.
-    edge_map, planar_map = carry.edge_map, carry.planar_map
-    if cfg.use_map:
-        if cfg.use_deskew and not sc.ct_sweep and sc.deskew_exact_lag:
-            # Exact-lag insert: this frame's realized motion pins the
-            # previous scan's sweep motion, so insert the previous scan's
-            # features, re-corrected with it, at the previous pose: one
-            # frame late, without the map accumulating O(accel) distortion.
-            exact = torch.where(fi == 0, carry.delta, delta_new)
-            ins_T = carry.T_w
-            ins_edges = deskew_mod.redeskew(
-                carry.prev_edges, carry.prev_edge_phase, carry.delta, exact)
-            ins_planars = deskew_mod.redeskew(
-                carry.prev_planars, carry.prev_planar_phase, carry.delta,
-                exact)
-            ins_edge_mask = carry.prev_edge_mask
-            ins_planar_mask = carry.prev_planar_mask
+        # 6) Re-correct the targets with the solved motion (the
+        # continuous-time path has corrected them already).
+        if cfg.use_deskew and deskew_ref is not None:
+            edges_fix = fix(tfeats.edges, tfeats.edge_phase, tfeats.edge_mask,
+                            deskew_ref, delta_new)
+            planars_fix = fix(tfeats.planars, tfeats.planar_phase,
+                              tfeats.planar_mask, deskew_ref, delta_new)
         else:
-            ins_T, ins_edges, ins_planars = T_w, edges_fix, planars_fix
-            ins_edge_mask, ins_planar_mask = (tfeats.edge_mask,
-                                              tfeats.planar_mask)
-        edge_map = local_map.insert(edge_map, se3.apply(ins_T, ins_edges),
-                                    ins_edge_mask)
-        planar_map = local_map.insert(planar_map,
-                                      se3.apply(ins_T, ins_planars),
-                                      ins_planar_mask)
-        if maintain:
-            center = T_w[:3, 3]
-            edge_map = local_map.maintain(edge_map, center,
-                                          cfg.map.voxel_edge,
-                                          cfg.map.crop_radius)
-            planar_map = local_map.maintain(planar_map, center,
-                                            cfg.map.voxel_planar,
-                                            cfg.map.crop_radius)
+            edges_fix, planars_fix = tfeats.edges, tfeats.planars
+
+        # 7) Map update: insert world-frame features, maintain on a cadence.
+        edge_map, planar_map = carry.edge_map, carry.planar_map
+        if cfg.use_map:
+            if cfg.use_deskew and not sc.ct_sweep and sc.deskew_exact_lag:
+                # Exact-lag insert: this frame's realized motion pins the
+                # previous scan's sweep motion, so insert the previous scan's
+                # features, re-corrected with it, at the previous pose: one
+                # frame late, without the map accumulating O(accel) distortion.
+                exact = torch.where(fi == 0, carry.delta, delta_new)
+                ins_T = carry.T_w
+                ins_edges = deskew_mod.redeskew(
+                    carry.prev_edges, carry.prev_edge_phase, carry.delta,
+                    exact)
+                ins_planars = deskew_mod.redeskew(
+                    carry.prev_planars, carry.prev_planar_phase, carry.delta,
+                    exact)
+                ins_edge_mask = carry.prev_edge_mask
+                ins_planar_mask = carry.prev_planar_mask
+            else:
+                ins_T, ins_edges, ins_planars = T_w, edges_fix, planars_fix
+                ins_edge_mask, ins_planar_mask = (tfeats.edge_mask,
+                                                  tfeats.planar_mask)
+            edge_map = local_map.insert(edge_map, se3.apply(ins_T, ins_edges),
+                                        ins_edge_mask)
+            planar_map = local_map.insert(planar_map,
+                                          se3.apply(ins_T, ins_planars),
+                                          ins_planar_mask)
+            if maintain:
+                center = T_w[:3, 3]
+                edge_map = local_map.maintain(edge_map, center,
+                                              cfg.map.voxel_edge,
+                                              cfg.map.crop_radius)
+                planar_map = local_map.maintain(planar_map, center,
+                                                cfg.map.voxel_planar,
+                                                cfg.map.crop_radius)
 
     # 8) Visual bookkeeping for the next frame.
     new_vision = carry.vision
     if cfg.use_vision:
-        new_vision = VisionCarry(
-            pyr=cur_pyr, grads=cur_grads,
-            tracks=_visual_bookkeeping(ri, table, image, cam, cfg))
+        with profiling.stage("vision_book"):
+            new_vision = VisionCarry(
+                pyr=cur_pyr, grads=cur_grads,
+                tracks=_visual_bookkeeping(ri, table, image, cam, cfg))
 
     new_carry = OdomCarry(
         T_w=T_w,

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from velo_tpu_torch import fp
+from velo_tpu_torch.evaluation import profiling
 from velo_tpu_torch.geom import linalg as lin3
 from velo_tpu_torch.geom import se3
 from velo_tpu_torch.lidar import deskew as deskew_mod
@@ -75,17 +76,19 @@ class CandCache(NamedTuple):
 def build_candidates(targets: TargetSet, queries: torch.Tensor,
                      qmask: torch.Tensor, T_init: torch.Tensor,
                      cfg) -> CandCache:
-    """Global approx-kNN preselection at the initial pose (dense engine)."""
-    n_cand = min(_N_CAND, targets.pts.shape[0])
-    p0 = se3.apply(T_init, queries)
-    cand_idx, _, cand_ok = dense_nn.knn(
-        targets, p0, qmask, k=n_cand,
-        max_dist=cfg.corr_max_dist + _CAND_SLACK, approx=True,
-        approx_impl=cfg.nn_approx_impl,
-    )
-    cand_idx = cand_idx.long()
-    return CandCache(pts=targets.pts[cand_idx],
-                     payload=targets.payload[cand_idx], ok=cand_ok)
+    """Global approx-kNN preselection at the initial pose (dense engine):
+    the step's ``search`` stage, wherever it is called."""
+    with profiling.stage("search"):
+        n_cand = min(_N_CAND, targets.pts.shape[0])
+        p0 = se3.apply(T_init, queries)
+        cand_idx, _, cand_ok = dense_nn.knn(
+            targets, p0, qmask, k=n_cand,
+            max_dist=cfg.corr_max_dist + _CAND_SLACK, approx=True,
+            approx_impl=cfg.nn_approx_impl,
+        )
+        cand_idx = cand_idx.long()
+        return CandCache(pts=targets.pts[cand_idx],
+                         payload=targets.payload[cand_idx], ok=cand_ok)
 
 
 def _select_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
