@@ -6,9 +6,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. card check: a CUDA device must be present; prints its name and power
    limit as nvidia-smi reports them;
-2. build: compiles ``velo_tpu_torch/csrc/dist_topk.cu`` and ``klt_l0.cu``
-   with nvcc (sm_90a), one process each, started together, then the
-   native loader and PNG unfilter with g++;
+2. build: compiles ``velo_tpu_torch/csrc/dist_topk.cu``, ``klt_l0.cu``
+   and ``lm_lidar.cu`` with nvcc (sm_90a), one process each, started
+   together, then the native loader and PNG unfilter with g++;
 3. fixture: one full-scale drive (64 x 2048 LiDAR, 192 x 640 images,
    4 frames, seed 0), host-pre-binned once and shared by the phases below;
 4. kernel checks at the shapes of the odometry path, each kernel against
@@ -23,33 +23,43 @@ Phases, each of which raises (and so exits non-zero) on failure:
    of frame 0 tracked into frame 1 (8 iterations) and back (4 iterations);
    then edge cases of both, bitwise too: fewer than k live bins,
    duplicated targets, Q = 1000; NaN, border and textureless tracks;
+   ``lm_lidar`` on every LM solve of 3 eager LiDAR frames (1024 edges,
+   2048 planars), against the plain solve, with the wrapper's, the
+   kernel's and the plain solve's ms per solve, one wrapper call and one
+   card kernel per call (profiled replays of a captured call) and the
+   bound from one read of its inputs and its float64 operations;
 5. fused pipeline: the 4 frames through ``pipeline.odometry.run_sequence``
    at the bench's fused configuration with ``klt_impl="pallas"``; on the
    card each frame is one replay of a CUDA graph of the step, one graph per
    cadence key, captured afresh for each cell (a wrapper counts its calls:
    each graph's eager warm-up and its capture, ``_graph_calls``); a
-   profile of 2 replayed frames must see ``klt_l0`` 2 and ``dist_topk`` 4
-   times per frame; the carry stays on the card, the poses within the
+   profile of 2 replayed frames must see ``klt_l0`` 2, ``dist_topk`` 4
+   and ``lm_lidar`` 3 times per frame (the map solves; the scan-to-scan
+   solves carry the visual blocks); the carry stays on the card, the poses
+   within the
    gates against ground truth, equal to the port's own CPU run of the same
    frames, and the profile reads the card's busy share;
 6. the same fused run with the shipped ``klt_impl="auto"`` (level 0 on the
    gather sampler, no ``klt_l0`` launch): ground truth, frames/s and
    profile beside the kernel's, to decide which should be the default;
 7. LiDAR-only pipeline: the same frames without images, the checks of the
-   first slice (4 ``dist_topk`` launches per frame, ground truth, CPU);
+   first slice (4 ``dist_topk`` and 9 ``lm_lidar`` launches per frame,
+   ground truth, CPU);
 7a. the solver variants that ``--set`` selects, each a cell on the same
    frames: ``ct-fused`` (``ct_sweep``, fused with ``klt_impl="pallas"``;
-   4 ``dist_topk`` and 2 ``klt_l0`` launches per frame), ``exact-lag``
-   (``deskew_exact_lag``, LiDAR-only; 4 / 0), ``hash`` (``nn_engine=
-   "hash"``, LiDAR-only; 0 / 0), ``klt-matmul`` and ``klt-window`` (fused,
-   the selection-matmul and local-window KLT; 4 / 0) and ``nn-xla``
-   (LiDAR-only, the exact search of ``nn_approx_impl="xla"``; 0 / 0):
+   4 ``dist_topk``, 2 ``klt_l0`` and 3 ``lm_lidar`` launches per frame),
+   ``exact-lag`` (``deskew_exact_lag``, LiDAR-only; 4 / 0 / 9), ``hash``
+   (``nn_engine="hash"``, LiDAR-only; 0 / 0 / 9), ``klt-matmul`` and
+   ``klt-window`` (fused, the selection-matmul and local-window KLT;
+   4 / 0 / 3) and ``nn-xla`` (LiDAR-only, the exact search of
+   ``nn_approx_impl="xla"``; 0 / 0 / 9):
    ground truth (ct_sweep against the reference's own error,
    ``GATE_GT_M_CT``), card against CPU on frames 0-1, warm frames/s;
 7b. run-scan, this slice's path: ``odometry.run_scan`` fused and
    LiDAR-only on the same frames, bitwise against the eager ``step`` loop
    on the card and against the CPU runs of 5 and 7; launches per replayed
-   frame from a profile; graphs captured and their seconds; warm frames/s,
+   frame of each of the three kernels from a profile; graphs captured and
+   their seconds; warm frames/s,
    host ms per frame and the card's busy share, captured beside eager;
 8. export: ``io.fake_kitti.export`` writes 4 full-scale frames (HDL-64E
    beam table, sweep start at the rear) as a KITTI sequence directory; the
@@ -57,9 +67,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
 9. cli-kitti: ``velo_tpu_torch.cli.main`` in process on that directory
    (scans through the native binned loader, which its stderr must name),
    fused with ``klt_impl=pallas``, with a checkpoint every 2 frames and the
-   smoother (window 8, 2 passes): launch counts (forward 4 ``dist_topk``
-   and 2 ``klt_l0`` per frame, smoother 2 ``dist_topk`` per frame and pass,
-   at the window-map shapes), relative motion within 10 cm of ground truth
+   smoother (window 8, 2 passes): launch counts (forward 4 ``dist_topk``,
+   2 ``klt_l0`` and 3 ``lm_lidar`` per frame, smoother 2 ``dist_topk`` per
+   frame and pass, at the window-map shapes, and no ``lm_lidar``: its
+   solves carry no motion prior), relative motion within 10 cm of ground truth
    in the median before and after smoothing, an interrupted run resumed to
    the bitwise forward trajectory, the smoother called as a library pass by
    pass (timed; frame 0 kept; equal to the command line's file), and the
@@ -96,9 +107,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
 11c. long drive: 40 frames of seed 0 at 64 x 2048, LiDAR-only, host
     pre-binned, shipped solver and map (``velo_tpu_torch.evaluation.
     longrun``: its fixture, simulated in a worker process from the start,
-    its cold ``run_scan`` and its drift row): 4 ``dist_topk`` wrapper calls
-    per frame and graph; both map rings must wrap (each ring's write head
-    against the points inserted, frame by frame); the same drive warm as
+    its cold ``run_scan`` and its drift row): 4 ``dist_topk`` and 9
+    ``lm_lidar`` wrapper calls per frame and graph; both map rings must
+    wrap (each ring's write head against the points inserted, frame by
+    frame); the same drive warm as
     two ``run_scan`` calls split at an odd frame, bitwise equal to the
     cold call; one CPU step from the card's carry at two frames after the
     wrap against the card's pose and every carry leaf (bitwise, else 5 cm
@@ -116,9 +128,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
     mean < 1e-4); (c) the card against the port's CPU on frames 0-1 of
     both (hit distances and scans bitwise or not, images' max |diff| and
     pixels that differ; hit distances within 1 mm, misses equal); (d)
-    11c's cold ``run_scan`` on the accelerated drive: 4 ``dist_topk``
-    wrapper calls per frame and graph, median relative error <= 0.04 m
-    and ATE <= 1.0 m;
+    11c's cold ``run_scan`` on the accelerated drive: 4 ``dist_topk`` and
+    9 ``lm_lidar`` wrapper calls per frame and graph, median relative
+    error <= 0.04 m and ATE <= 1.0 m;
 12. batched kernels: both under ``torch.func.vmap`` at B = 4 and 8 (inputs
     batched, and shared at batch stride 0): one launch per call, each
     sequence bitwise equal to its unbatched launch and to the plain
@@ -185,24 +197,42 @@ GATE_GT_DEG = {"lidar": 1.0, "fused": 1.5, "fused-gather": 1.5,
                "ct-fused": 1.5, "exact-lag": 1.0, "hash": 1.0,
                "klt-matmul": 1.5, "klt-window": 1.5, "nn-xla": 1.0}  # (deg)
 # The solver variants that --set selects, each a cell of its own at the
-# fixture's full width: (fused, --set, dist_topk and klt_l0 launches per
-# frame).  The hash engine bypasses dist_topk in both solves.
-VARIANTS = {"ct-fused": (True, "s:ct_sweep=1", 4, 2),
-            "exact-lag": (False, "s:deskew_exact_lag=1", 4, 0),
-            "hash": (False, "s:nn_engine=hash", 0, 0),
+# fixture's full width: (fused, --set, dist_topk, klt_l0 and lm_lidar
+# launches per frame).  The hash engine bypasses dist_topk in both solves.
+# lm_lidar runs each LM solve of the LiDAR-only system: 3 scan-to-map and
+# 5 + 1 scan-to-scan a LiDAR frame; a fused frame's scan-to-scan solves
+# carry the visual blocks, and ct_sweep's are 12-DoF, so 3.
+LM_LIDAR, LM_FUSED = 9, 3
+VARIANTS = {"ct-fused": (True, "s:ct_sweep=1", 4, 2, LM_FUSED),
+            "exact-lag": (False, "s:deskew_exact_lag=1", 4, 0, LM_LIDAR),
+            "hash": (False, "s:nn_engine=hash", 0, 0, LM_LIDAR),
             # The reference's other samplers and its XLA top-k:
             # selection-matmul and local-window KLT (no klt_l0: the whole
             # pyramid samples by products), and the exact search in place
             # of dist_topk.
-            "klt-matmul": (True, "v:klt_impl=matmul", 4, 0),
-            "klt-window": (True, "v:klt_impl=window", 4, 0),
-            "nn-xla": (False, "s:nn_approx_impl=xla", 0, 0)}
+            "klt-matmul": (True, "v:klt_impl=matmul", 4, 0, LM_FUSED),
+            "klt-window": (True, "v:klt_impl=window", 4, 0, LM_FUSED),
+            "nn-xla": (False, "s:nn_approx_impl=xla", 0, 0, LM_LIDAR)}
 VARIANT_CPU_FRAMES = 2  # card against CPU on frames 0-1
 GATE_CPU_M, GATE_CPU_DEG = 0.05, 0.1  # card vs the port's own CPU run
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM rate, float32 outside
 # the tensor cores.
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+FP64_FLOP_S = 33.5e12  # float64 outside the tensor cores
+# lm_lidar's bytes: one read of each correspondence (an edge: point, two
+# line points, two masks; a planar: point, normal, offset, two masks; 4 B
+# more for a quality weight where the solve has one; the 8 passes of a
+# solve over them hit L2), of T0, the prior's inverse and weights, and one
+# write of the state (T, lam, cost, converged, last_delta, n_accept).  Its
+# float64 operations per correspondence and pass: the full pass adds 43
+# products into 43 sums and computes ~6 fp helpers of ~3 operations; the
+# cost-only pass the helpers and one sum.
+LM_EDGE_BYTES, LM_PLANAR_BYTES, LM_QUALITY_BYTES = 38, 30, 4
+LM_SOLVE_BYTES = 64 + 64 + 24 + (64 + 4 + 4 + 1 + 4 + 4)
+LM_FULL_F64_OPS, LM_COST_F64_OPS = 2 * 43 + 18, 18 + 1
+KERNELS = ("dist_topk", "klt_l0", "lm_lidar")  # the port's CUDA kernels
+LM_FRAMES = 3  # eager LiDAR frames whose solves lm_lidar_check records
 # klt_l0 arithmetic, counted from its plain version: a template (a track
 # whose support lies inside the image) costs three
 # 15x15 bilinear patches (16x15 row lerps + 15x15 column lerps, 3 ops
@@ -255,15 +285,15 @@ def build() -> None:
     from velo_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build_all(["dist_topk", "klt_l0"])
-    for name in ("dist_topk", "klt_l0"):
+    _build.build_all(["dist_topk", "klt_l0", "lm_lidar"])
+    for name in ("dist_topk", "klt_l0", "lm_lidar"):
         _build.load(name)
         regs = [ln.strip() for ln in _build.build_logs.get(name, "").split(
             "\n") if "registers" in ln or "spill" in ln]
         print(f"build: {name} nvcc "
               f"{_build.build_seconds.get(name, 0.0):.2f} s; {regs}",
               flush=True)
-    print(f"build: both kernels in {time.perf_counter() - t0:.2f} s",
+    print(f"build: the three kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
     from velo_tpu_torch.io import native_loader
 
@@ -379,6 +409,23 @@ def _cuda_launches(fn):
         torch.cuda.synchronize()
     return [ev.name for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _graph_nodes(fn) -> list:
+    """The nodes of a CUDA graph that captures one call of ``fn``, as the
+    main path captures its step: each node's label in the graph's DOT dump
+    (``cudaGraphDebugDotPrint``), which names a kernel node's function."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # dumpable after capture
+    with torch.cuda.graph(graph):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    return re.findall(r'"graph_\d+_node_\d+"\s*\[(.*?)\];', dot, re.S)
 
 
 def _dist_topk_problem(rng, q, n, masked=0.1):
@@ -616,6 +663,101 @@ def klt_l0_check(dev, fx) -> dict:
     return {"per_shape": per_call, "max_abs_err": max_err}
 
 
+def lm_lidar_check(dev, grids) -> dict:
+    """The one-launch LM solve at the path's shapes: every LM solve of the
+    fixture's first LM_FRAMES LiDAR frames, stepped eagerly on the card,
+    kernel against the plain solve on the card (T, accepted steps,
+    convergence); for a map and a scan-to-scan solve the card ms per solve
+    of the wrapper (CUDA events around eager calls), of the kernel alone
+    (replayed from a CUDA graph) and of the plain solve, the wrapper calls
+    and the card kernels of one call (1 each, the kernels counted as the
+    nodes of a CUDA graph of the call) and the bound from bytes and float64
+    operations."""
+    from velo_tpu_torch.kernels import lm_lidar
+    from velo_tpu_torch.kernels._timing import graph_ms, median_ms
+    from velo_tpu_torch.pipeline import odometry
+
+    cfg, _ = _cell_config("lidar")
+    solves, real = [], lm_lidar.lm_lidar
+
+    def record(*args, **kw):
+        solves.append((tuple(x.clone() for x in args[:13]),
+                       {k: v.clone() for k, v in kw.items() if v is not None}))
+        return real(*args, **kw)
+
+    lm_lidar.lm_lidar = record
+    try:
+        carry = odometry.init_carry(cfg, dev)
+        for g, m in grids[:LM_FRAMES]:
+            carry, _ = odometry.step(carry, torch.as_tensor(g, device=dev),
+                                     torch.as_tensor(m, device=dev), cfg)
+    finally:
+        lm_lidar.lm_lidar = real
+    if len(solves) != 9 * LM_FRAMES:
+        raise AssertionError(f"lm_lidar: {len(solves)} routed solves in "
+                             f"{LM_FRAMES} LiDAR frames, expected 9 each")
+    differ, worst_m = 0, 0.0
+    for args, q in solves:
+        k = lm_lidar.lm_lidar(*args, cfg.solver, **q)
+        p = lm_lidar.lm_lidar_reference(*args, cfg.solver, **q)
+        if int(k.n_accept) != int(p.n_accept) or bool(
+                k.converged) != bool(p.converged):
+            raise AssertionError("lm_lidar: accepted steps or convergence "
+                                 "differ from the plain solve")
+        if not torch.equal(k.T, p.T):
+            differ += 1
+            worst_m = max(worst_m, (k.T - p.T).abs().max().item())
+    if worst_m > 1e-6:
+        raise AssertionError(f"lm_lidar: T off the plain solve by {worst_m}")
+    it = cfg.solver.lm_iters
+    per_solve = []
+    for kind, (args, q) in (("map", next(s for s in solves if len(s[1]) == 2)),
+                            ("scan", next(s for s in solves
+                                          if len(s[1]) == 1))):
+        ne, npl = args[3].shape[0], args[8].shape[0]
+
+        def wrapper():
+            return lm_lidar.lm_lidar(*args, cfg.solver, **q)
+
+        calls0 = lm_lidar.launches
+        wrapper()
+        calls = lm_lidar.launches - calls0
+        nodes = _graph_nodes(wrapper)
+        per_call = sum("lm_lidar_kernel" in n for n in nodes)
+        if calls != 1 or per_call != 1 or len(nodes) != 1:
+            raise AssertionError(f"one lm_lidar call: {calls} wrapper calls; "
+                                 f"a graph of it holds {nodes}")
+        ms = median_ms(wrapper)
+        kernel_ms = graph_ms(wrapper)
+        plain_ms = median_ms(
+            lambda: lm_lidar.lm_lidar_reference(*args, cfg.solver, **q),
+            bursts=5, calls=3)
+        n_bytes = (ne * (LM_EDGE_BYTES + LM_QUALITY_BYTES * ("edge_q" in q))
+                   + npl * (LM_PLANAR_BYTES
+                            + LM_QUALITY_BYTES * ("planar_q" in q))
+                   + LM_SOLVE_BYTES)
+        n_ops = it * (ne + npl) * (LM_FULL_F64_OPS + LM_COST_F64_OPS)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP64_FLOP_S
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "float64 operations"
+        per_solve.append({"solve": kind, "edges": ne, "planars": npl,
+                          "ms": ms, "kernel_only_ms": kernel_ms,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "wrapper_calls": calls,
+                          "cuda_launches_per_call": per_call})
+        print(f"lm_lidar {kind} solve ({ne} edges, {npl} planars, {it} "
+              f"iterations): wrapper {ms:.4f} ms, kernel alone "
+              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}, {n_bytes} B, {n_ops} float64 "
+              f"operations); {per_call} CUDA launch per call (the one node "
+              "of a CUDA graph of the call)", flush=True)
+    print(f"lm_lidar: {len(solves)} solves of {LM_FRAMES} LiDAR frames, T "
+          f"bitwise the plain solve's in {len(solves) - differ} (worst "
+          f"{worst_m:.3g})", flush=True)
+    return {"per_shape": per_solve, "solves": len(solves),
+            "t_bitwise": len(solves) - differ, "max_abs_err": worst_m}
+
+
 def _pose_errors(a: np.ndarray, b: np.ndarray):
     """Per-frame translation (m) and rotation (deg) difference of poses."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -642,7 +784,7 @@ def _carry_leaves(carry):
 
 def _device_time(prof):
     """(summed card kernel seconds, kernel count, seconds of each of the
-    port's two kernels, launches of each) of a torch.profiler run, read
+    port's three kernels, launches of each) of a torch.profiler run, read
     from the raw Kineto events: ``prof.events()`` would first build a
     Python object for each of the ~0.5 million events of a profiled step,
     which took a minute a frame on the card's host.  The profiler sees the
@@ -650,8 +792,8 @@ def _device_time(prof):
     of a program's ``velo.*`` profiler range spans the work it launched
     and is not counted."""
     busy, n = 0.0, 0
-    own = {"klt_l0": 0.0, "dist_topk": 0.0}
-    count = {"klt_l0": 0, "dist_topk": 0}
+    own = dict.fromkeys(KERNELS, 0.0)
+    count = dict.fromkeys(KERNELS, 0)
     for ev in prof.profiler.kineto_results.events():
         if (ev.device_type() == torch.autograd.DeviceType.CUDA
                 and not ev.name().startswith("velo.")):
@@ -667,7 +809,7 @@ def _device_time(prof):
 
 def _profile_calls(fn) -> dict:
     """torch.profiler over ``fn()``: wall, card kernel time and count, busy
-    share, and the two port kernels' seconds and launches (also inside
+    share, and the port's three kernels' seconds and launches (also inside
     replayed graphs)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -680,8 +822,8 @@ def _profile_calls(fn) -> dict:
         wall = time.perf_counter() - t0
     busy, n, own, count = _device_time(prof)
     return {"wall_s": wall, "device_s": busy, "kernels": n,
-            "busy_share": busy / wall, "klt_l0_s": own["klt_l0"],
-            "dist_topk_s": own["dist_topk"], "launches": count}
+            "busy_share": busy / wall,
+            **{f"{k}_s": v for k, v in own.items()}, "launches": count}
 
 
 def _profile(frames, cfg, carry, cam) -> dict:
@@ -724,8 +866,6 @@ def pipeline_run(dev, mode, fx, grids) -> dict:
     graphs, captured afresh for the cell.  Returns (result, the CPU run's
     poses or None)."""
     from velo_tpu_torch.geom import camera
-    from velo_tpu_torch.kernels.dist_topk import dist_topk
-    from velo_tpu_torch.kernels.klt_l0 import track_level0
     from velo_tpu_torch.pipeline import graphs, odometry
 
     cfg, fused = _cell_config(mode)
@@ -735,15 +875,14 @@ def pipeline_run(dev, mode, fx, grids) -> dict:
            if fused else None)
 
     graphs.release()
-    dist_topk.launches = 0
-    track_level0.launches = 0
+    _zero_launches()
     poses, diags, carry = odometry.run_sequence(frames, cfg, device=dev,
                                                 cam=cam)
     torch.cuda.synchronize()
-    launches = {"dist_topk": dist_topk.launches,
-                "klt_l0": track_level0.launches}
-    per_frame = ((VARIANTS[mode][2], VARIANTS[mode][3]) if mode in VARIANTS
-                 else (4, 2 if mode == "fused" else 0))
+    launches = _launches()
+    per_frame = (VARIANTS[mode][2:] if mode in VARIANTS
+                 else (4, 2 if mode == "fused" else 0,
+                       LM_FUSED if fused else LM_LIDAR))
     _expect_launches(mode, launches, *per_frame)
     captures = [c._asdict() for c in graphs.captures()]
     if not all(x.is_cuda for x in _carry_leaves(carry)):
@@ -779,7 +918,7 @@ def pipeline_run(dev, mode, fx, grids) -> dict:
     if prof is not None:
         print(f"{mode}: profile of 2 warm frames: {prof}", flush=True)
         replayed = {k: v / 2 for k, v in prof["launches"].items()}
-        if replayed != {"dist_topk": per_frame[0], "klt_l0": per_frame[1]}:
+        if replayed != dict(zip(KERNELS, per_frame)):
             raise AssertionError(f"{mode}: launches per replayed frame "
                                  f"{replayed}")
     graphs.release()
@@ -823,14 +962,12 @@ def run_scan_phase(dev, fx, grids, cpu_poses, smi) -> dict:
     graphs captured and their seconds; warm frames/s, host ms per frame and
     busy share, captured beside eager."""
     from velo_tpu_torch.geom import camera
-    from velo_tpu_torch.kernels.dist_topk import dist_topk
-    from velo_tpu_torch.kernels.klt_l0 import track_level0
     from velo_tpu_torch.pipeline import graphs, odometry
 
     out = {}
     for mode in ("fused", "lidar"):
         cfg, fused = _cell_config(mode)
-        per_frame = (4, 2 if fused else 0)
+        per_frame = (4, 2, LM_FUSED) if fused else (4, 0, LM_LIDAR)
         cam = (camera.from_numpy(fx.P, fx.T_cam_velo, IMG_W, IMG_H, dev)
                if fused else None)
         scans = torch.as_tensor(np.stack([g[0] for g in grids])).to(dev)
@@ -869,15 +1006,13 @@ def run_scan_phase(dev, fx, grids, cpu_poses, smi) -> dict:
 
         # The captured run, from nothing captured.
         graphs.release()
-        dist_topk.launches = 0
-        track_level0.launches = 0
+        _zero_launches()
         t0 = time.perf_counter()
         final, res = odometry.run_scan(odometry.init_carry(cfg, dev), scans,
                                        masks, cfg, images=images, cam=cam)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launches = {"dist_topk": dist_topk.launches,
-                    "klt_l0": track_level0.launches}
+        launches = _launches()
         _expect_launches(f"run-scan {mode}", launches, *per_frame)
         captures = [c._asdict() for c in graphs.captures()]
         differ = [k for k in res._fields
@@ -899,7 +1034,7 @@ def run_scan_phase(dev, fx, grids, cpu_poses, smi) -> dict:
             captured, odometry.init_carry(cfg, dev), frames[:2]))
         graph_t["busy_share_warm"] = graph_p["device_s"] / 2 * graph_t["fps"]
         replayed = {k: v / 2 for k, v in graph_p["launches"].items()}
-        if replayed != {"dist_topk": per_frame[0], "klt_l0": per_frame[1]}:
+        if replayed != dict(zip(KERNELS, per_frame)):
             raise AssertionError(f"run-scan {mode}: launches per replayed "
                                  f"frame {replayed}")
         graphs.release()
@@ -956,30 +1091,46 @@ def _cli(argv, device=None):
     card unless ``device`` says otherwise -> (the --json line's result,
     what it wrote to stderr, the kernels' launch counts of this call)."""
     from velo_tpu_torch import cli
-    from velo_tpu_torch.kernels.dist_topk import dist_topk
-    from velo_tpu_torch.kernels.klt_l0 import track_level0
-
     from velo_tpu_torch.pipeline import graphs
 
     out, err = io.StringIO(), io.StringIO()
     graphs.release()  # this run captures its own graphs
-    dist_topk.launches = 0
-    track_level0.launches = 0
+    _zero_launches()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(argv + ["--json"]
                       + (["--device", device] if device else []))
     torch.cuda.synchronize()
     if rc != 0:
         raise AssertionError(f"cli.main({argv}) returned {rc}")
-    launches = {"dist_topk": dist_topk.launches,
-                "klt_l0": track_level0.launches}
+    launches = _launches()
     if device == "cpu" and any(launches.values()):
         raise AssertionError(f"a CPU run launched kernels: {launches}")
     return json.loads(out.getvalue().strip().splitlines()[-1]), \
         err.getvalue(), launches
 
 
-def _graph_calls(dist_per_frame, klt_per_frame, eager_dist=0) -> dict:
+def _zero_launches() -> None:
+    """Zero the wrapper-call counters of the port's three kernels."""
+    from velo_tpu_torch.kernels import lm_lidar
+    from velo_tpu_torch.kernels.dist_topk import dist_topk
+    from velo_tpu_torch.kernels.klt_l0 import track_level0
+
+    dist_topk.launches = track_level0.launches = lm_lidar.launches = 0
+
+
+def _launches() -> dict:
+    """The wrapper calls of the port's three kernels since
+    :func:`_zero_launches` (a batched call is one)."""
+    from velo_tpu_torch.kernels import lm_lidar
+    from velo_tpu_torch.kernels.dist_topk import dist_topk
+    from velo_tpu_torch.kernels.klt_l0 import track_level0
+
+    return {"dist_topk": dist_topk.launches, "klt_l0": track_level0.launches,
+            "lm_lidar": lm_lidar.launches}
+
+
+def _graph_calls(dist_per_frame, klt_per_frame, lm_per_frame,
+                 eager_dist=0) -> dict:
     """The wrapper calls a run on the card makes since the last
     ``graphs.release()``: each CUDA graph it captured runs the step once
     eagerly (its warm-up) and once under capture, and a replay calls no
@@ -990,13 +1141,18 @@ def _graph_calls(dist_per_frame, klt_per_frame, eager_dist=0) -> dict:
 
     n = 2 * len(graphs.captures())
     return {"dist_topk": dist_per_frame * n + eager_dist,
-            "klt_l0": klt_per_frame * n}
+            "klt_l0": klt_per_frame * n, "lm_lidar": lm_per_frame * n}
 
 
 def _expect_launches(what, launches, dist_per_frame, klt_per_frame,
-                     eager_dist=0):
-    expect = _graph_calls(dist_per_frame, klt_per_frame, eager_dist)
-    if launches != expect or (dist_per_frame and not launches["dist_topk"]):
+                     lm_per_frame, eager_dist=0):
+    """The wrapper calls of a run against :func:`_graph_calls`, with at
+    least one graph captured where a kernel runs at all."""
+    expect = _graph_calls(dist_per_frame, klt_per_frame, lm_per_frame,
+                          eager_dist)
+    per_frame = (dist_per_frame, klt_per_frame, lm_per_frame)
+    if launches != expect or any(
+            k and not launches[name] for name, k in zip(KERNELS, per_frame)):
         raise AssertionError(f"{what}: launches {launches}, expected "
                              f"{expect}")
 
@@ -1067,8 +1223,6 @@ def cli_kitti(dev, tmp, root, smi) -> dict:
     from velo_tpu_torch.config import (LidarConfig, VeloConfig,
                                        apply_overrides)
     from velo_tpu_torch.io import kitti, native_loader
-    from velo_tpu_torch.kernels.dist_topk import dist_topk
-    from velo_tpu_torch.kernels.klt_l0 import track_level0
     from velo_tpu_torch.pipeline import checkpoint, graphs, odometry, smoother
 
     def path(*parts):
@@ -1082,7 +1236,7 @@ def cli_kitti(dev, tmp, root, smi) -> dict:
     res, err, launches = _cli(
         base + ["--frames", str(N_FRAMES), "--out", path("smooth"),
                 "--checkpoint", path("ck.npz"), "--smooth"] + every)
-    _expect_launches("cli-kitti", launches, 4, 2,
+    _expect_launches("cli-kitti", launches, 4, 2, LM_FUSED,
                      eager_dist=2 * N_FRAMES * SMOOTH_PASSES)
     # The native prefetch loader read the scans, binning them in its
     # workers; not the Python fallback.
@@ -1103,13 +1257,13 @@ def cli_kitti(dev, tmp, root, smi) -> dict:
     half = N_FRAMES // 2
     _, _, n_half = _cli(base + ["--frames", str(half), "--out", path("half"),
                                 "--checkpoint", path("ck2.npz")] + every)
-    _expect_launches("cli-kitti, first half", n_half, 4, 2)
+    _expect_launches("cli-kitti, first half", n_half, 4, 2, LM_FUSED)
     if checkpoint.checkpoint_frame(path("ck2.npz")) != half:
         raise AssertionError("cli-kitti: no checkpoint at the interruption")
     res_r, _, n_res = _cli(
         base + ["--frames", str(N_FRAMES), "--out", path("resumed"),
                 "--checkpoint", path("ck2.npz"), "--resume"] + every)
-    _expect_launches("cli-kitti, resumed", n_res, 4, 2)
+    _expect_launches("cli-kitti, resumed", n_res, 4, 2, LM_FUSED)
     resumed = checkpoint.load_history(path("ck2.npz"))
     if sorted(resumed) != sorted(full) or not all(
             np.array_equal(resumed[k], full[k]) for k in full):
@@ -1151,8 +1305,7 @@ def cli_kitti(dev, tmp, root, smi) -> dict:
     scans = np.stack([g[0] for g in grids])
     masks = np.stack([g[1] for g in grids])
     poses, pass_s, per_pass = full["poses"], [], []
-    dist_topk.launches = 0
-    track_level0.launches = 0
+    _zero_launches()
     for _ in range(SMOOTH_PASSES):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1163,8 +1316,8 @@ def cli_kitti(dev, tmp, root, smi) -> dict:
         pass_s.append(time.perf_counter() - t0)
         per_pass.append(poses)
     graphs.release()  # the smoother's passes run eagerly
-    _expect_launches("smoother", {"dist_topk": dist_topk.launches,
-                                  "klt_l0": track_level0.launches}, 0, 0,
+    # Its scan-to-map solves carry no motion prior: the plain LM path.
+    _expect_launches("smoother", _launches(), 0, 0, 0,
                      eager_dist=2 * N_FRAMES * SMOOTH_PASSES)
     # The gauge fix re-bases every pose on frame 0: float32 rounding apart,
     # it stays where the forward pass put it.
@@ -1232,7 +1385,9 @@ def cli_variants(tmp) -> dict:
                         ("no-prebin", ["--no-prebin"])):
         res, _, launches = _cli(base + flags + [
             "--out", os.path.join(tmp, "v-" + name)])
-        _expect_launches(f"cli {name}", launches, 4, 0)
+        # --fast's deferred-tail LM bypasses lm_lidar.
+        _expect_launches(f"cli {name}", launches, 4, 0,
+                         0 if name == "fast" else LM_LIDAR)
         p = kitti.read_poses(os.path.join(tmp, "v-" + name, "synthetic.txt"))
         if p.shape != (n, 4, 4) or not np.isfinite(p).all():
             raise AssertionError(f"cli {name}: bad pose file {p.shape}")
@@ -1456,7 +1611,8 @@ def batch_cli(dev, tmp, smi) -> dict:
         # Kernel launches per step do not depend on B: one batched launch
         # per call site (a loop over sequences would launch B times).
         _expect_launches(f"batch {mode}", launches, 4,
-                         2 if mode == "fused" else 0)
+                         2 if mode == "fused" else 0,
+                         LM_FUSED if mode == "fused" else LM_LIDAR)
         if (res["batch"], res["frames"], res["sharded"], res["prebin"],
                 len(res["sequences"])) != (BATCH, BATCH_FRAMES, False, True,
                                            BATCH):
@@ -1517,7 +1673,7 @@ def batch_cli(dev, tmp, smi) -> dict:
     # --shard on one card: the batch is one chunk, the unsharded result.
     argv = BATCH_ARGV + BATCH_MODES["lidar"] + ["--shard"]
     res, _, launches = _cli(argv + ["--out", os.path.join(tmp, "b-shard")])
-    _expect_launches("batch --shard", launches, 4, 0)
+    _expect_launches("batch --shard", launches, 4, 0, LM_LIDAR)
     for b in range(BATCH):
         with open(os.path.join(tmp, "b-shard", f"seq{b:02d}.txt"), "rb") as x, \
                 open(os.path.join(tmp, "b-lidar", f"seq{b:02d}.txt"),
@@ -1553,8 +1709,8 @@ def batch_variants(dev, tmp, smi) -> dict:
                     str(AZ)] + flags
             d = os.path.join(tmp, "bv-" + mode)
             res, _, launches = _cli(argv + ["--out", d])
-            _expect_launches(f"batch {mode}", launches, VARIANTS[mode][2],
-                             VARIANTS[mode][3])
+            _expect_launches(f"batch {mode}", launches,
+                             *VARIANTS[mode][2:])
             bi = cli.batch_inputs(cli.build_parser().parse_args(argv), dev)
             rows = []
             for b in range(2):
@@ -1864,8 +2020,6 @@ def long_drive(dev, drive, smi) -> dict:
     the module docstring, phase 11c): the main path past the first wrap
     of both map rings."""
     from velo_tpu_torch.evaluation import longrun
-    from velo_tpu_torch.kernels.dist_topk import dist_topk
-    from velo_tpu_torch.kernels.klt_l0 import track_level0
     from velo_tpu_torch.pipeline import graphs, odometry
 
     scans, masks, gt_velo, gt_cam, T_cv, _, _ = drive
@@ -1876,12 +2030,10 @@ def long_drive(dev, drive, smi) -> dict:
     masks_d = torch.as_tensor(valid).to(dev)
 
     # The harness's own cold run (captures included).
-    dist_topk.launches = 0
-    track_level0.launches = 0
+    _zero_launches()
     _, out, secs = longrun.run_drive(cfg, scans_d, masks_d)
-    launches = {"dist_topk": dist_topk.launches,
-                "klt_l0": track_level0.launches}
-    _expect_launches("long-drive", launches, 4, 0)
+    launches = _launches()
+    _expect_launches("long-drive", launches, 4, 0, LM_LIDAR)
     captures = [c._asdict() for c in graphs.captures()]
     poses = out.T_w.cpu().numpy()
     if not np.all(np.isfinite(poses)) or poses.shape != (LONG_FRAMES, 4, 4):
@@ -1973,7 +2125,7 @@ def long_drive(dev, drive, smi) -> dict:
         carries[wrap + 1], scans_d[wrap + 1:wrap + 3],
         masks_d[wrap + 1:wrap + 3], cfg))
     replayed = {k: v / 2 for k, v in prof["launches"].items()}
-    if replayed != {"dist_topk": 4, "klt_l0": 0}:
+    if replayed != dict(zip(KERNELS, (4, 0, LM_LIDAR))):
         raise AssertionError(f"long-drive: launches per replayed frame "
                              f"{replayed}")
     graphs.release()
@@ -2068,8 +2220,6 @@ def fixtures_accel_phase(dev, drive, smi) -> dict:
     accelerated drive."""
     from velo_tpu_torch.evaluation import longrun
     from velo_tpu_torch.io import fixtures, fixtures_accel
-    from velo_tpu_torch.kernels.dist_topk import dist_topk
-    from velo_tpu_torch.kernels.klt_l0 import track_level0
 
     targets = [(fixtures, "make_fixture")] + [
         (fixtures_accel, name) for name in (
@@ -2176,12 +2326,10 @@ def fixtures_accel_phase(dev, drive, smi) -> dict:
     grids, valid = longrun.prebin(scans, masks, cfg.lidar)
     scans_d = torch.as_tensor(grids).to(dev)
     masks_d = torch.as_tensor(valid).to(dev)
-    dist_topk.launches = 0
-    track_level0.launches = 0
+    _zero_launches()
     _, out, secs = longrun.run_drive(cfg, scans_d, masks_d)
-    launches = {"dist_topk": dist_topk.launches,
-                "klt_l0": track_level0.launches}
-    _expect_launches("fixtures-accel", launches, 4, 0)
+    launches = _launches()
+    _expect_launches("fixtures-accel", launches, 4, 0, LM_LIDAR)
     est = out.T_w.cpu().numpy()
     if not np.all(np.isfinite(est)) or est.shape != (LONG_FRAMES, 4, 4):
         raise AssertionError(f"fixtures-accel: bad poses: shape {est.shape}")
@@ -2334,6 +2482,7 @@ def main() -> int:
         fx, grids = phase("fixture", make_frames)
         dk = phase("dist_topk", dist_topk_check, dev)
         kk = phase("klt_l0", klt_l0_check, dev, fx)
+        lk = phase("lm_lidar", lm_lidar_check, dev, grids)
         runs, cpu_poses = {}, {}
         for mode in ("fused", "fused-gather", "lidar", *VARIANTS):
             runs[mode], cpu_poses[mode] = phase(mode, pipeline_run, dev,
@@ -2388,6 +2537,8 @@ def main() -> int:
             "launches": runs["run-scan"]["fused"]["launches"][name],
             "launches_per_replayed_frame": runs["run-scan"]["fused"][
                 "launches_per_replayed_frame"][name],
+            "launches_per_replayed_frame_lidar": runs["run-scan"]["lidar"][
+                "launches_per_replayed_frame"][name],
             "launches_by_path": {
                 **{mode: runs[mode]["launches"][name] for mode in (
                     "fused", "lidar", *VARIANTS)},
@@ -2423,6 +2574,17 @@ def main() -> int:
               library_call="none: no single PyTorch call computes "
                            "inverse-compositional Lucas-Kanade"),
     ]
+    # lm_lidar's numbers are per solve: the mean of a map and a
+    # scan-to-scan solve.
+    shapes = lk["per_shape"]
+    kernels.append(entry(
+        "lm_lidar", "velo_tpu_torch/csrc/lm_lidar.cu",
+        "solve/lm.lm_solve with the staged prior (plain PyTorch; the "
+        "reference has no pallas_call here)", lk, None,
+        library_call="none: no single PyTorch call runs an LM solve",
+        t_bitwise=lk["t_bitwise"], solves=lk["solves"],
+        **{k: sum(s[k] for s in shapes) / len(shapes)
+           for k in ("ms", "plain_ms", "bound_ms")}))
     print(json.dumps({"pipeline": runs, "phase_seconds": seconds,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

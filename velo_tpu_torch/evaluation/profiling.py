@@ -13,8 +13,11 @@ Chrome-trace exporter.
     ``velo.stage.<name>``, opened only while a profiler is active;
   * ``span(name)`` -- a ``record_function`` range, opened only while a
     profiler is active (``velo.graphs.*``, ``velo.bin_scan_host``);
-  * ``add`` / ``counters()`` -- process-wide counters of host seconds
-    (``graphs.launch``: each unprofiled ``graph.replay()``);
+  * ``add`` / ``counters()`` -- process-wide counters of events and host
+    seconds (``graphs.launch``: each unprofiled ``graph.replay()``;
+    ``lm.kernel`` / ``lm.plain``: each LM solve ``solve/icp._solve`` runs
+    as one ``lm_lidar`` launch or on the plain path, counted when the
+    Python runs: eagerly, or at a graph's warm-up and capture);
   * ``trace`` -- context manager around ``torch.profiler`` that writes a
     Chrome trace (``chrome://tracing``, Perfetto) of the card's kernels and
     the host's calls.
@@ -107,7 +110,7 @@ def stage_end() -> None:
         launch_mark("end")
 
 
-def add(name: str, seconds: float) -> None:
+def add(name: str, seconds: float = 0.0) -> None:
     """Count one event of ``name`` taking ``seconds``."""
     c = _counters.setdefault(name, [0, 0.0])
     c[0] += 1

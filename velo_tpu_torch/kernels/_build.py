@@ -6,9 +6,10 @@ first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
-into ``velo_tpu_torch/_build/lib<name>-<sha>.so``, where ``<sha>`` is a
-hash of the source: an edited source is rebuilt, an unchanged one is
-loaded as built.  Nothing outside the package's own ``csrc/`` is
+plus the source's own flags (``SOURCE_FLAGS``) into
+``velo_tpu_torch/_build/lib<name>-<sha>.so``, where ``<sha>`` is a hash of
+the source and those flags: an edited source is rebuilt, an unchanged one
+is loaded as built.  Nothing outside the package's own ``csrc/`` is
 compiled, and the library includes no PyTorch header, so a build takes
 seconds.
 """
@@ -27,6 +28,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# lm_lidar mirrors the plain path's float32 roundings operation for
+# operation: no multiply and add may fuse.
+SOURCE_FLAGS = {"lm_lidar": ["-fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
@@ -46,7 +50,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    sha = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    flags = " ".join(SOURCE_FLAGS.get(name, [])).encode()
+    sha = hashlib.sha256(src.read_bytes() + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{sha}.so"
 
 
@@ -58,7 +63,8 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, []), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc, time.perf_counter()

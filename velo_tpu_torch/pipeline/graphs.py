@@ -171,7 +171,7 @@ class CapturedStep:
     def _capture(self, key, frame_host):
         from velo_tpu_torch.kernels import _build
 
-        _build.build_all(["dist_topk", "klt_l0", "stage_mark"])
+        _build.build_all(["dist_topk", "klt_l0", "lm_lidar", "stage_mark"])
         dev = _tensors(self._carry)[0].device
         carry = self._carry._replace(frame_host=frame_host)
         t0 = time.perf_counter()

@@ -24,6 +24,7 @@ from velo_tpu_torch import fp
 from velo_tpu_torch.evaluation import profiling
 from velo_tpu_torch.geom import linalg as lin3
 from velo_tpu_torch.geom import se3
+from velo_tpu_torch.kernels import lm_lidar
 from velo_tpu_torch.lidar import deskew as deskew_mod
 from velo_tpu_torch.mapping import dense_nn, voxel_hash
 from velo_tpu_torch.mapping.dense_nn import TargetSet, make_targets  # noqa: F401
@@ -345,14 +346,31 @@ def _obs_scaled_prior(cfg, w_prior, r_pr, H_obs):
     return _obs_prior_terms(obs_prior_basis(cfg, w_prior, H_obs), r_pr)
 
 
+def _obs_prior_active(cfg, prior_T) -> bool:
+    """Whether the observability-scaled prior is active: a prior pose, a
+    positive ``prior_obs_gain`` and a positive prior weight.  Exactly then
+    :func:`_make_stage` returns a stage."""
+    return (prior_T is not None and cfg.prior_obs_gain > 0.0
+            and (cfg.prior_weight_trans > 0 or cfg.prior_weight_rot > 0))
+
+
 def _use_deferred(cfg, prior_T) -> bool:
     """Routing of ``prior_obs_impl="deferred"`` / ``"deferred_tail"``: the
     deferred-reject LM loops apply exactly when the obs-scaled prior is
-    active (the condition under which :func:`_make_stage` returns a
-    stage)."""
+    active."""
     return (cfg.prior_obs_impl in ("deferred", "deferred_tail")
-            and prior_T is not None and cfg.prior_obs_gain > 0.0
-            and (cfg.prior_weight_trans > 0 or cfg.prior_weight_rot > 0))
+            and _obs_prior_active(cfg, prior_T))
+
+
+def _kernel_route(cfg, prior_T, vis, device: torch.device) -> bool:
+    """Whether :func:`_solve` runs its LM solves as one ``lm_lidar`` launch
+    each: on the card, for the LiDAR-only system (no ``vis``) on the staged
+    route (the obs-scaled prior active and not deferred), without the
+    degeneracy remap and with a loss the kernel computes."""
+    return (device.type == "cuda" and vis is None
+            and _obs_prior_active(cfg, prior_T)
+            and not _use_deferred(cfg, prior_T)
+            and cfg.degen_rel_min <= 0.0 and cfg.icp_loss in lm_lidar.LOSSES)
 
 
 def _make_stage(cfg, prior_T, prior_scale, build_noprior):
@@ -363,11 +381,15 @@ def _make_stage(cfg, prior_T, prior_scale, build_noprior):
     the prior's eigenbasis from the prior-less Hessian at T; either way the
     iteration's ``trial_cost`` scores the prior in that frozen basis.
     """
-    if prior_T is None or cfg.prior_obs_gain <= 0.0:
+    if not _obs_prior_active(cfg, prior_T):
         return None
     w_pr, prior_inv = _prior_weights(cfg, prior_T, prior_scale)
-    if w_pr is None:
-        return None
+    return obs_stage(cfg, w_pr, prior_inv, build_noprior)
+
+
+def obs_stage(cfg, w_pr, prior_inv, build_noprior):
+    """:func:`_make_stage`'s stage from the prior's scaled weights ``w_pr``
+    (6,) and inverse pose ``prior_inv`` (``_prior_weights``)."""
 
     def stage(T, basis=None):
         H0, g0, c0 = build_noprior(T)
@@ -403,23 +425,40 @@ def _solve(edges, edge_mask, planars, planar_mask, T_init, cfg, outer,
     them (and on ``vis``'s visual blocks): with the staged obs prior, with
     the deferred-reject loop on the full dynamic system
     (``prior_obs_impl="deferred"``) or on the stage (``"deferred_tail"``),
-    or on the classic system when the obs prior is inactive."""
+    or on the classic system when the obs prior is inactive.  On the card
+    the staged LiDAR-only solve is one ``lm_lidar`` kernel launch
+    (:func:`_kernel_route`); ``profiling`` counts each solve as
+    ``lm.kernel`` or ``lm.plain``."""
     T = T_init
     diag = _empty_diag(T_init.device)
+    kernel = _kernel_route(cfg, prior_T, vis, T_init.device)
+    if kernel:
+        w_pr, prior_inv = _prior_weights(cfg, prior_T, prior_scale)
     for _ in range(outer):
         a, b, e_ok, n, d, p_ok, q_kw = fit(T)
-        corr = (edges, edge_mask, a, b, e_ok, planars, planar_mask, n, d,
-                p_ok, cfg)
-        deferred = _use_deferred(cfg, prior_T)
-        stage = (None if deferred and cfg.prior_obs_impl == "deferred"
-                 else _make_stage(cfg, prior_T, prior_scale,
-                                  make_lidar_system(*corr, vis=vis, **q_kw)))
-        build = None if stage is not None else make_lidar_system(
-            *corr, vis=vis, prior_T=prior_T, prior_scale=prior_scale, **q_kw)
         n_e = torch.sum(e_ok, dtype=torch.int32)
         n_p = torch.sum(p_ok, dtype=torch.int32)
         enough = (n_e + n_p) >= _MIN_CORR
-        T_new, st = lm_solve(build, T, cfg, stage=stage, deferred=deferred)
+        if kernel:
+            profiling.add("lm.kernel")
+            st = lm_lidar.lm_lidar(T, prior_inv, w_pr, edges, edge_mask, a, b,
+                                   e_ok, planars, planar_mask, n, d, p_ok,
+                                   cfg, **q_kw)
+            T_new = st.T
+        else:
+            profiling.add("lm.plain")
+            corr = (edges, edge_mask, a, b, e_ok, planars, planar_mask, n, d,
+                    p_ok, cfg)
+            deferred = _use_deferred(cfg, prior_T)
+            stage = (None if deferred and cfg.prior_obs_impl == "deferred"
+                     else _make_stage(cfg, prior_T, prior_scale,
+                                      make_lidar_system(*corr, vis=vis,
+                                                        **q_kw)))
+            build = None if stage is not None else make_lidar_system(
+                *corr, vis=vis, prior_T=prior_T, prior_scale=prior_scale,
+                **q_kw)
+            T_new, st = lm_solve(build, T, cfg, stage=stage,
+                                 deferred=deferred)
         T = torch.where(enough, T_new, T)
         diag = SolveDiag(n_edge=n_e, n_planar=n_p, cost=st.cost,
                          degenerate=~enough,
@@ -489,11 +528,9 @@ def solve_scan_to_map(cur_edges, cur_edge_mask, cur_planars,
 def _make_stage_ct(cfg, prior_T, prior_scale, build_noprior):
     """12-DoF variant of :func:`_make_stage` for :func:`lm_solve_ct`; the
     prior touches only the pose block of the (12, 12) system."""
-    if prior_T is None or cfg.prior_obs_gain <= 0.0:
+    if not _obs_prior_active(cfg, prior_T):
         return None
     w_pr, prior_inv = _prior_weights(cfg, prior_T, prior_scale)
-    if w_pr is None:
-        return None
 
     def stage(T, xi2, basis=None):
         H0, g0, c0 = build_noprior(T, xi2)
