@@ -275,24 +275,28 @@ def pose_gaps(program: np.ndarray, reference: np.ndarray):
     return dt, np.degrees(np.arctan2(sin2, cos2))
 
 
-def compare(sequences, reference: np.ndarray, limits: dict) -> dict:
+def compare(sequences, reference, limits: dict) -> dict:
     """The numbers that decide ``correct``: every pose of every sequence
     the window ran that the reference covers (its first frames), against
-    the reference's, and every pose of the window for finiteness.
+    the reference's poses of that sequence's drive, and every pose of the
+    window for finiteness.
 
     ``sequences``: list of (F_i, 4, 4) pose arrays, each from frame 0 of
-    the drive.  Returns {name: {"value", "limit"}} and the count of failed
-    poses."""
-    k = reference.shape[0]
+    drive 0, or of (drive, poses) pairs.  ``reference``: the reference's
+    (K, 4, 4) poses of drive 0, or a list of them, one per drive.  Returns
+    {name: {"value", "limit"}} and the count of failed poses."""
+    refs = reference if isinstance(reference, (list, tuple)) else [reference]
     gap_m, gap_deg, compared, failed, nonfinite = 0.0, 0.0, 0, 0, 0
-    for poses in sequences:
+    for item in sequences:
+        drive, poses = item if isinstance(item, tuple) else (0, item)
+        ref = refs[drive]
         poses = np.asarray(poses, np.float64)
         bad = ~np.isfinite(poses).all(axis=(-1, -2))
         nonfinite += int(bad.sum())
-        head = poses[:k]
+        head = poses[:ref.shape[0]]
         if not len(head):
             continue
-        dt, dr = pose_gaps(head, reference[:len(head)])
+        dt, dr = pose_gaps(head, ref[:len(head)])
         dt = np.where(np.isfinite(dt), dt, np.inf)
         dr = np.where(np.isfinite(dr), dr, np.inf)
         failed += int(((dt > limits["pose_gap_m"])

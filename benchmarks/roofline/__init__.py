@@ -2,7 +2,10 @@
 peaks and the least time a piece of work can take on it.
 
 Peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, at its 700 W power
-limit): 3.35 TB/s of HBM, 67 TFLOP/s of float32 outside the tensor cores.
+limit): 3.35 TB/s of HBM, 67 TFLOP/s of float32 and 33.5 TFLOP/s of
+float64 outside the tensor cores (132 SMs at 1.98 GHz, 128 float32 and 64
+float64 fused multiply-adds a clock each; the data sheet rounds the
+latter to 34).
 A card set below 700 W runs slower under load; the harness reads the
 card's power limit and prints it beside every roofline share.
 """
@@ -13,12 +16,19 @@ import subprocess
 
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+FP64_FLOP_S = 33.5e12
 
 
 def least_seconds(n_bytes: float, n_ops: float) -> float:
     """The least time ``n_bytes`` of HBM traffic and ``n_ops`` float32
     operations take: the larger of the two bounds."""
     return max(n_bytes / HBM_BYTES_S, n_ops / FP32_FLOP_S)
+
+
+def least_seconds_f64(n_bytes: float, n_f64_ops: float) -> float:
+    """The least time ``n_bytes`` of HBM traffic and ``n_f64_ops`` float64
+    operations take: the larger of the two bounds."""
+    return max(n_bytes / HBM_BYTES_S, n_f64_ops / FP64_FLOP_S)
 
 
 def power_limit_w():

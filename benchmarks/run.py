@@ -6,13 +6,16 @@ the card:
         --trace <0|1>
 
 from the root of a checkout.  One run: load the cell's files by the names
-``BENCHMARK.json`` gives; simulate the drive from ``--seed`` on the card;
+``BENCHMARK.json`` gives; simulate the drive from ``--seed`` on the card
+(a cell whose parameters give ``sequences`` B > 1: one drive per sequence,
+lane i's from ``--seed`` + i);
 prepare the cell's traffic and warm it up through the timed entry (which
 builds the kernels into the checkout's ``velo_tpu_torch/_build/`` on the
 first run and captures the cell's CUDA graphs); measure for ``--seconds``;
 with ``--trace 1`` profile a few more frames of the same traffic; then,
 with the program's state freed, run the plain reference over the first
-frames of the drive and compare every pose the window produced for them.
+frames of each drive and compare every pose the window produced for them
+with its own drive's.
 The last lines of standard error are the compared numbers beside their
 limits; the last line of standard output is one JSON object with
 ``correct``, ``attempted``, ``failed``, ``metrics``, ``device`` (and
@@ -65,11 +68,12 @@ from benchmarks import harness  # noqa: E402
 class Context:
     """What a traffic driver and a metric reader see of the run."""
 
-    def __init__(self, cfg, params, device, drive):
+    def __init__(self, cfg, params, device, drives):
         import torch
 
         self.cfg, self.params = cfg, params
-        self.device, self.drive = torch.device(device), drive
+        self.device = torch.device(device)
+        self.drives, self.drive = drives, drives[0]
         self.cuda = self.device.type == "cuda"
 
     def sync(self):
@@ -110,6 +114,14 @@ def parse(argv):
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     return p.parse_args(argv)
+
+
+def simulate_drives(conf: dict, seed: int, lanes: int, device) -> list:
+    """One drive per sequence: lane i's from ``seed + i``, so lane 0's is
+    the drive that a single-sequence cell of the same seed simulates."""
+    from benchmarks import drive as drive_mod
+
+    return [drive_mod.simulate(conf, seed + i, device) for i in range(lanes)]
 
 
 def reference_poses(conf: dict, drive, frames: int, device):
@@ -162,14 +174,14 @@ def main(argv=None, device=None, adjust=None, root: Path = ROOT) -> int:
         device = "cuda"
 
     import velo_tpu_torch
-    from benchmarks import drive as drive_mod
     from velo_tpu_torch.pipeline import graphs
 
     traffic = harness.plugin("traffic", work["kind"], root)
     cfg = harness.build_config(velo_tpu_torch.config, conf["velo_config"])
     t_drive = time.perf_counter()
-    sim = drive_mod.simulate(conf, args.seed, device)
-    ctx = Context(cfg, work["params"], device, sim)
+    drives = simulate_drives(conf, args.seed,
+                             work["params"].get("sequences", 1), device)
+    ctx = Context(cfg, work["params"], device, drives)
     t_prepare = time.perf_counter()
     state = traffic.prepare(ctx)
     ctx.sync()
@@ -198,11 +210,11 @@ def main(argv=None, device=None, adjust=None, root: Path = ROOT) -> int:
     if ctx.cuda:
         torch.cuda.empty_cache()
 
-    k = min(work["params"]["compare_frames"], len(sim.scans))
+    k = min(work["params"]["compare_frames"], len(ctx.drive.scans))
     t_ref = time.perf_counter()
-    ref = reference_poses(conf, sim, k, ctx.device)
+    refs = [reference_poses(conf, d, k, ctx.device) for d in drives]
     ref_s = time.perf_counter() - t_ref
-    checks, failed = harness.compare(run["sequences"], ref, work["limits"])
+    checks, failed = harness.compare(run["sequences"], refs, work["limits"])
     correct = harness.checks_pass(checks)
 
     run.update(cfg=cfg, trace=trace, kind=work["kind"])
@@ -233,7 +245,7 @@ def main(argv=None, device=None, adjust=None, root: Path = ROOT) -> int:
     print(f"{args.workload} seed {args.seed}: {run['frames']} frames in "
           f"{run['window_s']:.3f} s, set-up {run['setup_s']:.3f} s, "
           f"{len(run['sequences'])} sequence(s); reference over {k} frames "
-          f"in {ref_s:.3f} s",
+          f"of {len(drives)} drive(s) in {ref_s:.3f} s",
           file=sys.stderr)
     print("set-up " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()),
           file=sys.stderr)

@@ -29,7 +29,7 @@ def card():
 def tiny(conf, work):
     """A configuration and cell small enough for the CPU: 16 rings x 256
     bins, 128 x 384 images (rendered at 256 x 768 where the drive renders
-    at a camera's own size), 5-frame drives."""
+    at a camera's own size), 5-frame drives, at most 2 sequences."""
     vc = conf["velo_config"]
     vc["lidar"].update(n_rings=16, n_azimuth=256)
     vc["vision"].update(height=128, width=384, k_tracks=128, grid_cols=24)
@@ -43,3 +43,5 @@ def tiny(conf, work):
                           trace_frames=2)
     if "trace_ramp_frames" in work["params"]:
         work["params"]["trace_ramp_frames"] = 1
+    if "sequences" in work["params"]:
+        work["params"]["sequences"] = 2

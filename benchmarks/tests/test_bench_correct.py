@@ -10,7 +10,7 @@ import torch
 from benchmarks import control, harness, run
 from benchmarks.tests.conftest import tiny
 
-CELLS = ["lidar.replay", "lidar.online", "fused.replay"]
+CELLS = ["lidar.replay", "lidar.online", "fused.replay", "fused.fleet8"]
 
 
 def _conf(cell):
@@ -28,7 +28,8 @@ def _run(cell, capsys, seed=11):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("cell", ["lidar.replay", "fused.replay"])
+@pytest.mark.parametrize("cell", ["lidar.replay", "fused.replay",
+                                  "fused.fleet8"])
 def test_control_fails_the_limits(cell):
     from benchmarks import drive
 
