@@ -4,17 +4,18 @@ benchmark's readers of them.
 * ``profiling.stage`` inside a capture (a fake capture and mark launcher
   here): a mark on entry, the enclosing stage's mark again after a nested
   stage, the end mark; outside a capture a ``velo.stage.<name>`` range,
-  only while a profiler records; the eager step's stages on the CPU;
+  only while a profiler records; the eager step's stages on the CPU; the
+  hash engine's ``hash_build`` / ``hash_query`` marks;
 * the marks' names: the kernels of ``csrc/stage_mark.cu``, clear of the
   names the benchmark's readers match kernels by;
 * ``graphs.CapturedStep``'s host spans and launch counter (a fake graph on
   the CPU), and ``bin_scan_host``'s span;
 * ``benchmarks/metrics/_stages.py`` on synthetic traces, the launch
-  reader, and every stage and launch entry of ``BENCHMARK.json`` with its
-  reader;
+  reader, the hash search's roofline reader, and every stage, launch and
+  hash entry of ``BENCHMARK.json`` with its reader;
 * on the card only: LiDAR steps at 16 x 256 captured, then replayed under
   the profiler, each mark found as often per frame as the step opens its
-  stage.
+  stage, with either correspondence engine.
 
 The file imports no JAX: ``python -m pytest --noconftest -q -m cuda
 tests/test_torch_stage_marks.py`` runs the card test where JAX is missing.
@@ -33,6 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from benchmarks import harness
 from benchmarks.metrics import _stages
+from benchmarks.roofline import voxel_hash
 from velo_tpu_torch import config
 from velo_tpu_torch.evaluation import profiling
 from velo_tpu_torch.io import fixtures
@@ -45,11 +47,23 @@ ROOT = Path(__file__).resolve().parent.parent
 # after each of its 2; fused adds vision_front and vision_book once each.
 LIDAR_MARKS = {"lidar_front": 1, "solve": 3, "search": 4, "map_refine": 3,
                "map_update": 1, "carry": 1, "end": 1}
-NEW_METRICS = [f"stage.{s}_ms.replay" for s in (
+# With the hash engine: 6 grid builds (3 solves x edge and planar) and 18
+# queries (5 + 1 + 3 outer iterations x 2), each re-opening its solve's
+# stage; no search.
+HASH_STEP_MARKS = {"lidar_front": 1, "solve": 1 + 4 + 12, "hash_build": 6,
+                   "hash_query": 18, "map_refine": 1 + 2 + 6,
+                   "map_update": 1}
+HASH_MARKS = dict(HASH_STEP_MARKS, carry=1, end=1)
+STAGE_METRICS = [f"stage.{s}_ms.replay" for s in (
     "lidar_front", "vision_front", "search", "solve", "map_refine",
-    "map_update", "vision_book", "carry", "outside")] + [
-    "graphs.launch_ms.replay"]
+    "map_update", "vision_book", "carry", "outside", "hash_build",
+    "hash_query")]
+NEW_METRICS = STAGE_METRICS + ["graphs.launch_ms.replay",
+                               "hash_search_roofline"]
 VISION_ONLY = {"stage.vision_front_ms.replay", "stage.vision_book_ms.replay"}
+HASH_ONLY = {"stage.hash_build_ms.replay", "stage.hash_query_ms.replay",
+             "hash_search_roofline"}
+DENSE_ONLY = {"stage.search_ms.replay"}
 
 
 @pytest.fixture
@@ -137,11 +151,12 @@ def test_marks_are_the_kernels_of_stage_mark_cu():
     assert defined == listed == list(profiling.MARKS)
 
 
-def _lidar_config():
+def _lidar_config(engine="dense"):
     base = config.tiny_test_config()
     return dataclasses.replace(
         base, use_vision=False, use_map=True, prebin_host=True,
         lidar=dataclasses.replace(base.lidar, n_rings=16, n_azimuth=256),
+        solver=dataclasses.replace(base.solver, nn_engine=engine),
         map=dataclasses.replace(base.map, map_every=1, maintain_every=2))
 
 
@@ -166,6 +181,22 @@ def test_eager_step_opens_each_stage_on_the_cpu(lidar_drive):
         if n.startswith("velo.stage."))
     assert found == {"lidar_front": 1, "solve": 1, "search": 4,
                      "map_refine": 1, "map_update": 1}
+
+
+def test_hash_step_marks_each_build_and_query(fake_capture, lidar_drive):
+    _, grids, masks = lidar_drive
+    cfg = _lidar_config("hash")
+    carry = odometry.init_carry(cfg, "cpu")
+    odometry.step(carry, grids[1], masks[1], cfg)
+    assert collections.Counter(fake_capture) == HASH_STEP_MARKS
+    # Each build and query nests in its solve's stage, whose mark follows.
+    outer = None
+    for mark, after in zip(fake_capture, fake_capture[1:]):
+        if mark.startswith("hash_"):
+            assert after == outer in ("solve", "map_refine"), fake_capture
+        else:
+            outer = mark
+    assert profiling._open == []
 
 
 class _Carry(NamedTuple):
@@ -223,10 +254,11 @@ def test_bin_scan_host_span_leaves_the_grid_unchanged():
 # ------------------------------------------------- the benchmark's readers
 
 
-def _frame(t, vision: bool):
+def _frame(t, vision: bool, engine: str = "dense"):
     """Device events (name, start ns, duration ns) of one replayed frame
     from ``t``: the copy-in, the captured step with its marks, the result's
-    copy; and {stage: ns} of its operations."""
+    copy; and {stage: ns} of its operations.  ``engine="hash"``: a grid
+    build and a query nested in each solve in place of the searches."""
     ev, ns = [], collections.Counter()
 
     def op(name, d, stage):
@@ -247,20 +279,26 @@ def _frame(t, vision: bool):
     if vision:
         mark("vision_front")
         op("klt_l0_kernel", 120, "vision_front")
+    def searches(outer, d_search, op_name, d_op):
+        for _ in range(2):
+            if engine == "hash":
+                mark("hash_build")
+                op("radixSortKVInPlace", 70, "hash_build")
+                mark(outer)
+                mark("hash_query")
+                op("searchsorted_cuda_kernel", d_search, "hash_query")
+            else:
+                mark("search")
+                op("dist_topk_kernel", d_search, "search")
+            mark(outer)
+            op(op_name, d_op, outer)
+
     mark("solve")
     op("elementwise_kernel_128", 200, "solve")
-    for _ in range(2):
-        mark("search")
-        op("dist_topk_kernel", 90, "search")
-        mark("solve")
-        op("gemm_f64", 60, "solve")
+    searches("solve", 90, "gemm_f64", 60)
     mark("map_refine")
     op("reduce_kernel", 80, "map_refine")
-    for _ in range(2):
-        mark("search")
-        op("dist_topk_kernel", 110, "search")
-        mark("map_refine")
-        op("reduce_kernel", 30, "map_refine")
+    searches("map_refine", 110, "reduce_kernel", 30)
     mark("map_update")
     op("scatter_kernel", 70, "map_update")
     if vision:
@@ -273,14 +311,15 @@ def _frame(t, vision: bool):
     return ev, ns, t
 
 
-def _replay_run(vision: bool, frames: int = 2, marks: bool = True):
+def _replay_run(vision: bool, frames: int = 2, marks: bool = True,
+                engine: str = "dense"):
     """A replay run's trace as the harness reads it: ``frames`` frames
     between two ``harness.MARKER`` kernels, and work outside them."""
     device = [("vectorized_elementwise_kernel", 0, 50)]
     device.append((harness.MARKER, 100, 10))
     t, expect = 200, collections.Counter()
     for _ in range(frames):
-        ev, ns, t = _frame(t, vision)
+        ev, ns, t = _frame(t, vision, engine)
         device += ev
         expect += ns
     device.append((harness.MARKER, t + 50, 10))
@@ -323,10 +362,43 @@ def test_stage_split_of_a_lidar_trace_has_no_vision_stage():
         sum(expect.values()) * 1e-6 / 3)
 
 
+def _bench_config(name):
+    spec = harness.benchmark()
+    entry = next(c for c in spec["configs"] if c["name"] == name)
+    return harness.build_config(config,
+                                harness.config_file(entry)["velo_config"])
+
+
+def test_stage_split_and_roofline_of_a_synthetic_hash_trace():
+    run, expect = _replay_run(vision=False, frames=3, engine="hash")
+    run["cfg"] = _bench_config("kitti-hdl64-lidar-hash")
+    split = _stages.split_ms(run)
+    assert set(split) == {"outside", "lidar_front", "solve", "hash_build",
+                          "hash_query", "map_refine", "map_update", "carry"}
+    for stage, ns in expect.items():
+        assert split[stage] == pytest.approx(ns * 1e-6 / 3), stage
+    build = _read("stage.hash_build_ms.replay", run)
+    query = _read("stage.hash_query_ms.replay", run)
+    assert build == pytest.approx(4 * 70 * 1e-6)
+    assert query == pytest.approx(2 * (90 + 110) * 1e-6)
+    least_ms = 1e3 * voxel_hash.frame_least_seconds(run["cfg"])
+    assert _read("hash_search_roofline", run) == pytest.approx(
+        100.0 * least_ms / (build + query))
+    # The count is the configuration's: 6 builds, 18 queries a frame.
+    calls = voxel_hash.frame_calls(run["cfg"])
+    assert sum(share for share, *_ in calls) == 6
+    assert sum(share * iters for share, iters, *_ in calls) == 18
+    dense, _ = _replay_run(vision=False, frames=3)
+    dense["cfg"] = _bench_config("kitti-hdl64-lidar")
+    assert voxel_hash.frame_calls(dense["cfg"]) == []
+    for name in HASH_ONLY:
+        assert _read(name, dense) is None, name
+
+
 def test_stage_readers_read_nothing_without_marks():
     unmarked, _ = _replay_run(vision=True, marks=False)
     marked, _ = _replay_run(vision=True)
-    for name in NEW_METRICS[:-1]:
+    for name in STAGE_METRICS + ["hash_search_roofline"]:
         assert _read(name, unmarked) is None, name
         assert _read(name, {"kind": "replay", "trace": None}) is None
         assert _read(name, dict(marked, kind="online")) is None
@@ -344,27 +416,38 @@ def test_new_per_layer_entry_finds_its_reader(name):
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     entry = next(m for m in spec["per_layer"] if m["name"] == name)
     assert callable(harness.plugin("metrics", name).read)
-    assert entry["moves"] == "frames_per_s" and entry["unit"] == "ms"
+    assert entry["moves"] == "frames_per_s"
+    assert entry["unit"] == ("%" if name.endswith("_roofline") else "ms")
     if name.startswith("stage."):
         assert entry["source"] == "device_trace"
         assert entry["layer"].startswith("frame loop stages")
+    elif name.endswith("_roofline"):
+        assert entry["source"] == "device_trace"
+        assert entry["layer"].startswith("correspondence search")
     else:
         assert entry["source"] == "program_counter"
-    for cell in ("fused.replay", "lidar.replay", "lidar.online"):
+    expected = {"fused.replay": name not in HASH_ONLY,
+                "lidar.replay": name not in HASH_ONLY | VISION_ONLY,
+                "lidar.hash": name not in DENSE_ONLY | VISION_ONLY,
+                "lidar.online": False}
+    for cell, want in expected.items():
         listed = name in {m["name"] for m in harness.metrics_of(spec, cell,
                                                                 True)}
-        assert listed == (cell == "fused.replay" or (
-            cell == "lidar.replay" and name not in VISION_ONLY)), cell
+        assert listed == want, cell
 
 
 # ------------------------------------------------------------ on the card
 
 
 @pytest.mark.cuda
-def test_captured_lidar_step_marks_each_stage_per_frame(lidar_drive):
+@pytest.mark.parametrize("engine, marks", [("dense", LIDAR_MARKS),
+                                           ("hash", HASH_MARKS)])
+def test_captured_lidar_step_marks_each_stage_per_frame(lidar_drive, engine,
+                                                       marks):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    cfg, grids, masks = lidar_drive
+    _, grids, masks = lidar_drive
+    cfg = _lidar_config(engine)
     dev = torch.device("cuda")
     grids, masks = grids.to(dev), masks.to(dev)
     graphs.release()
@@ -383,6 +466,6 @@ def test_captured_lidar_step_marks_each_stage_per_frame(lidar_drive):
         if ev.device_type() == cuda
         and ev.name().startswith(profiling.MARK_PREFIX))
     assert found == {profiling.MARK_PREFIX + k: 2 * v
-                     for k, v in LIDAR_MARKS.items()}
+                     for k, v in marks.items()}
     assert torch.isfinite(out.T_w).all()
     graphs.release()

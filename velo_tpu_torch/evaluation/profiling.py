@@ -32,8 +32,8 @@ import torch
 
 # The stages of ``odometry.step`` in the order they run, then the end mark;
 # index i is kernel i of ``csrc/stage_mark.cu``.
-STAGES = ("lidar_front", "vision_front", "solve", "search", "map_refine",
-          "map_update", "vision_book", "carry")
+STAGES = ("lidar_front", "vision_front", "solve", "search", "hash_build",
+          "hash_query", "map_refine", "map_update", "vision_book", "carry")
 MARKS = STAGES + ("end",)
 MARK_PREFIX = "velo_stage_"
 

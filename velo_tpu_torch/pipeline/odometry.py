@@ -33,9 +33,10 @@ the device and captures into a CUDA graph: on the card ``jit_step``,
 The step's blocks are the stages of ``evaluation/profiling.STAGES``
 (``profiling.stage``): lidar_front (1-2), vision_front (2v), solve (3,
 the plausibility gate included; ``icp.build_candidates`` nests a search
-stage wherever it runs), map_refine (4), map_update (5-7), vision_book
-(8).  In a captured graph each opens with a mark kernel, so the device
-trace times every stage of a replayed frame.
+stage wherever it runs, the hash engine a hash_build stage per grid and
+a hash_query stage per query), map_refine (4), map_update (5-7),
+vision_book (8).  In a captured graph each opens with a mark kernel, so
+the device trace times every stage of a replayed frame.
 """
 from __future__ import annotations
 

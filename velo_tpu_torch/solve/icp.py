@@ -126,20 +126,24 @@ def _make_engine(targets: TargetSet, queries: torch.Tensor,
     of ``cfg.nn_engine``; ``cands`` reuses a caller's candidate cache
     (dense engine only)."""
     if cfg.nn_engine == "hash":
-        # Centre the packed voxel keys on the cloud so world-frame maps stay
-        # within the +/-511-cell key window.
-        w = targets.mask.to(targets.pts.dtype)
-        center = fp.sum(targets.pts * w[:, None], dim=0) / torch.clamp(
-            fp.sum(w), min=1.0)
-        grid = voxel_hash.build_grid(targets.pts, targets.mask,
-                                     cfg.voxel_size, center=center,
-                                     payload=targets.payload)
+        # Stages ``hash_build`` / ``hash_query``, nested in the calling
+        # solve's stage.
+        with profiling.stage("hash_build"):
+            # Centre the packed voxel keys on the cloud so world-frame maps
+            # stay within the +/-511-cell key window.
+            w = targets.mask.to(targets.pts.dtype)
+            center = fp.sum(targets.pts * w[:, None], dim=0) / torch.clamp(
+                fp.sum(w), min=1.0)
+            grid = voxel_hash.build_grid(targets.pts, targets.mask,
+                                         cfg.voxel_size, center=center,
+                                         payload=targets.payload)
 
         def query(p, mask, k):
-            idx, dist, val = voxel_hash.knn(
-                grid, p, mask, k=k, max_dist=cfg.corr_max_dist,
-                occupancy=cfg.voxel_occupancy)
-            return grid.pts[idx], grid.payload[idx], dist, val
+            with profiling.stage("hash_query"):
+                idx, dist, val = voxel_hash.knn(
+                    grid, p, mask, k=k, max_dist=cfg.corr_max_dist,
+                    occupancy=cfg.voxel_occupancy)
+                return grid.pts[idx], grid.payload[idx], dist, val
 
         return query
     if cands is None:
