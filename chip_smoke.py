@@ -6,9 +6,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. card check: a CUDA device must be present; prints its name and power
    limit as nvidia-smi reports them;
-2. build: compiles ``velo_tpu_torch/csrc/dist_topk.cu``, ``klt_l0.cu``
-   and ``lm_lidar.cu`` with nvcc (sm_90a), one process each, started
-   together, then the native loader and PNG unfilter with g++;
+2. build: compiles ``velo_tpu_torch/csrc/dist_topk.cu``, ``klt_l0.cu``,
+   ``lm_lidar.cu`` and ``lm_joint.cu`` with nvcc (sm_90a), one process
+   each, started together, then the native loader and PNG unfilter with
+   g++;
 3. fixture: one full-scale drive (64 x 2048 LiDAR, 192 x 640 images,
    4 frames, seed 0), host-pre-binned once and shared by the phases below;
 4. kernel checks at the shapes of the odometry path, each kernel against
@@ -28,14 +29,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
    kernel's and the plain solve's ms per solve, one wrapper call and one
    card kernel per call (profiled replays of a captured call) and the
    bound from one read of its inputs and its float64 operations;
+   ``lm_joint`` the same on every joint (LiDAR-visual) solve of 3 eager
+   fused frames (6 a frame: the scan-to-scan solves), timed on the one
+   with the most depth tracks;
 5. fused pipeline: the 4 frames through ``pipeline.odometry.run_sequence``
    at the bench's fused configuration with ``klt_impl="pallas"``; on the
    card each frame is one replay of a CUDA graph of the step, one graph per
    cadence key, captured afresh for each cell (a wrapper counts its calls:
    each graph's eager warm-up and its capture, ``_graph_calls``); a
-   profile of 2 replayed frames must see ``klt_l0`` 2, ``dist_topk`` 4
-   and ``lm_lidar`` 3 times per frame (the map solves; the scan-to-scan
-   solves carry the visual blocks); the carry stays on the card, the poses
+   profile of 2 replayed frames must see ``klt_l0`` 2, ``dist_topk`` 4,
+   ``lm_lidar`` 3 (the map solves) and ``lm_joint`` 6 times per frame
+   (the scan-to-scan solves, which carry the visual blocks); the carry
+   stays on the card, the poses
    within the
    gates against ground truth, equal to the port's own CPU run of the same
    frames, and the profile reads the card's busy share;
@@ -47,18 +52,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ground truth, CPU);
 7a. the solver variants that ``--set`` selects, each a cell on the same
    frames: ``ct-fused`` (``ct_sweep``, fused with ``klt_impl="pallas"``;
-   4 ``dist_topk``, 2 ``klt_l0`` and 3 ``lm_lidar`` launches per frame),
-   ``exact-lag`` (``deskew_exact_lag``, LiDAR-only; 4 / 0 / 9), ``hash``
-   (``nn_engine="hash"``, LiDAR-only; 0 / 0 / 9), ``klt-matmul`` and
-   ``klt-window`` (fused, the selection-matmul and local-window KLT;
-   4 / 0 / 3) and ``nn-xla`` (LiDAR-only, the exact search of
-   ``nn_approx_impl="xla"``; 0 / 0 / 9):
+   4 ``dist_topk``, 2 ``klt_l0``, 3 ``lm_lidar`` and no ``lm_joint``
+   launches per frame: its scan-to-scan solve is 12-DoF and plain),
+   ``exact-lag`` (``deskew_exact_lag``, LiDAR-only; 4 / 0 / 9 / 0),
+   ``hash`` (``nn_engine="hash"``, LiDAR-only; 0 / 0 / 9 / 0),
+   ``klt-matmul`` and ``klt-window`` (fused, the selection-matmul and
+   local-window KLT; 4 / 0 / 3 / 6) and ``nn-xla`` (LiDAR-only, the exact
+   search of ``nn_approx_impl="xla"``; 0 / 0 / 9 / 0):
    ground truth (ct_sweep against the reference's own error,
    ``GATE_GT_M_CT``), card against CPU on frames 0-1, warm frames/s;
 7b. run-scan, this slice's path: ``odometry.run_scan`` fused and
    LiDAR-only on the same frames, bitwise against the eager ``step`` loop
    on the card and against the CPU runs of 5 and 7; launches per replayed
-   frame of each of the three kernels from a profile; graphs captured and
+   frame of each of the four kernels from a profile; graphs captured and
    their seconds; warm frames/s,
    host ms per frame and the card's busy share, captured beside eager;
 8. export: ``io.fake_kitti.export`` writes 4 full-scale frames (HDL-64E
@@ -68,9 +74,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (scans through the native binned loader, which its stderr must name),
    fused with ``klt_impl=pallas``, with a checkpoint every 2 frames and the
    smoother (window 8, 2 passes): launch counts (forward 4 ``dist_topk``,
-   2 ``klt_l0`` and 3 ``lm_lidar`` per frame, smoother 2 ``dist_topk`` per
-   frame and pass, at the window-map shapes, and no ``lm_lidar``: its
-   solves carry no motion prior), relative motion within 10 cm of ground truth
+   2 ``klt_l0``, 3 ``lm_lidar`` and 6 ``lm_joint`` per frame, smoother 2
+   ``dist_topk`` per frame and pass, at the window-map shapes, and no LM
+   kernel: its solves carry no motion prior), relative motion within 10 cm
+   of ground truth
    in the median before and after smoothing, an interrupted run resumed to
    the bitwise forward trajectory, the smoother called as a library pass by
    pass (timed; frame 0 kept; equal to the command line's file), and the
@@ -197,13 +204,14 @@ GATE_GT_DEG = {"lidar": 1.0, "fused": 1.5, "fused-gather": 1.5,
                "ct-fused": 1.5, "exact-lag": 1.0, "hash": 1.0,
                "klt-matmul": 1.5, "klt-window": 1.5, "nn-xla": 1.0}  # (deg)
 # The solver variants that --set selects, each a cell of its own at the
-# fixture's full width: (fused, --set, dist_topk, klt_l0 and lm_lidar
-# launches per frame).  The hash engine bypasses dist_topk in both solves.
-# lm_lidar runs each LM solve of the LiDAR-only system: 3 scan-to-map and
-# 5 + 1 scan-to-scan a LiDAR frame; a fused frame's scan-to-scan solves
-# carry the visual blocks, and ct_sweep's are 12-DoF, so 3.
-LM_LIDAR, LM_FUSED = 9, 3
-VARIANTS = {"ct-fused": (True, "s:ct_sweep=1", 4, 2, LM_FUSED),
+# fixture's full width: (fused, --set, dist_topk and klt_l0 launches per
+# frame, (lm_lidar, lm_joint) launches per frame).  The hash engine
+# bypasses dist_topk in both solves.  lm_lidar runs each LM solve of the
+# LiDAR-only system: 3 scan-to-map and 5 + 1 scan-to-scan a LiDAR frame;
+# a fused frame's 5 + 1 scan-to-scan solves carry the visual blocks and
+# run on lm_joint; ct_sweep's are 12-DoF and stay plain.
+LM_LIDAR, LM_FUSED, LM_CT_FUSED, LM_NONE = (9, 0), (3, 6), (3, 0), (0, 0)
+VARIANTS = {"ct-fused": (True, "s:ct_sweep=1", 4, 2, LM_CT_FUSED),
             "exact-lag": (False, "s:deskew_exact_lag=1", 4, 0, LM_LIDAR),
             "hash": (False, "s:nn_engine=hash", 0, 0, LM_LIDAR),
             # The reference's other samplers and its XLA top-k:
@@ -231,8 +239,22 @@ FP64_FLOP_S = 33.5e12  # float64 outside the tensor cores
 LM_EDGE_BYTES, LM_PLANAR_BYTES, LM_QUALITY_BYTES = 38, 30, 4
 LM_SOLVE_BYTES = 64 + 64 + 24 + (64 + 4 + 4 + 1 + 4 + 4)
 LM_FULL_F64_OPS, LM_COST_F64_OPS = 2 * 43 + 18, 18 + 1
-KERNELS = ("dist_topk", "klt_l0", "lm_lidar")  # the port's CUDA kernels
-LM_FRAMES = 3  # eager LiDAR frames whose solves lm_lidar_check records
+# lm_joint adds the tracks (all of the table, masked or not, as the kernel
+# reads them): per track xyz, obs, its weight, two masks and the float64
+# x1, x2, and once the camera (P, T_cam_velo and its inverse, w_scale).
+# Float64 operations per track and pass, counted from the source: the
+# reprojection's full pass two residual rows of 43 products and sums plus
+# two transforms, the projection and the 3 x 6 and 2 x 6 chains (~383),
+# its cost-only pass ~65; the epipolar full pass its line, norm and dot
+# twice and six generator derivatives of ~30 plus the 43 sums (~316), its
+# cost-only pass ~27.
+LM_TRACK_BYTES = 12 + 8 + 4 + 1 + 1 + 24 + 24
+LM_CAMERA_BYTES = 48 + 64 + 64 + 4
+LM_TRACK_F64_OPS = 383 + 65 + 316 + 27
+# The port's CUDA kernels: each name is in its kernel's and no other's.
+KERNELS = ("dist_topk", "klt_l0", "lm_lidar", "lm_joint")
+LM_FRAMES = 3  # eager frames whose solves lm_lidar_check / lm_joint_check
+# record (LiDAR / fused)
 # klt_l0 arithmetic, counted from its plain version: a template (a track
 # whose support lies inside the image) costs three
 # 15x15 bilinear patches (16x15 row lerps + 15x15 column lerps, 3 ops
@@ -285,15 +307,15 @@ def build() -> None:
     from velo_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build_all(["dist_topk", "klt_l0", "lm_lidar"])
-    for name in ("dist_topk", "klt_l0", "lm_lidar"):
+    _build.build_all(["dist_topk", "klt_l0", "lm_lidar", "lm_joint"])
+    for name in ("dist_topk", "klt_l0", "lm_lidar", "lm_joint"):
         _build.load(name)
         regs = [ln.strip() for ln in _build.build_logs.get(name, "").split(
             "\n") if "registers" in ln or "spill" in ln]
         print(f"build: {name} nvcc "
               f"{_build.build_seconds.get(name, 0.0):.2f} s; {regs}",
               flush=True)
-    print(f"build: the three kernels in {time.perf_counter() - t0:.2f} s",
+    print(f"build: the four kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
     from velo_tpu_torch.io import native_loader
 
@@ -758,6 +780,111 @@ def lm_lidar_check(dev, grids) -> dict:
             "t_bitwise": len(solves) - differ, "max_abs_err": worst_m}
 
 
+def lm_joint_check(dev, fx, grids) -> dict:
+    """The one-launch joint LM solve at the path's shapes: every joint
+    solve (the 5 + 1 scan-to-scan solves, which carry the visual blocks) of
+    the fixture's first LM_FRAMES fused frames, stepped eagerly on the
+    card, kernel against the plain solve on the card (T, accepted steps,
+    convergence); for the richest solve (most depth tracks) the card ms of
+    the wrapper, of the kernel alone (replayed from a CUDA graph) and of
+    the plain solve, and the wrapper calls and card kernels of one call (1
+    each)."""
+    from velo_tpu_torch.geom import camera
+    from velo_tpu_torch.kernels import lm_joint
+    from velo_tpu_torch.kernels._timing import graph_ms, median_ms
+    from velo_tpu_torch.pipeline import odometry
+    from velo_tpu_torch.solve import icp
+
+    cfg, _ = _cell_config("fused")
+    cam = camera.from_numpy(fx.P, fx.T_cam_velo, IMG_W, IMG_H, dev)
+    solves, real = [], lm_joint.lm_joint
+
+    def clone(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def record(*args, prepared=None, **kw):
+        solves.append((tuple(x.clone() for x in args[:13]),
+                       icp.VisData(*(clone(x) for x in args[13])),
+                       {k: v.clone() for k, v in kw.items() if v is not None}))
+        return real(*args, prepared=prepared, **kw)
+
+    lm_joint.lm_joint = record
+    try:
+        carry = odometry.init_carry(cfg, dev)
+        for (g, m), img in zip(grids[:LM_FRAMES], fx.images[:LM_FRAMES]):
+            carry, _ = odometry.step(
+                carry, torch.as_tensor(g, device=dev),
+                torch.as_tensor(m, device=dev), cfg, cam=cam,
+                image=torch.as_tensor(np.asarray(img, np.float32),
+                                      device=dev))
+    finally:
+        lm_joint.lm_joint = real
+    if len(solves) != 6 * LM_FRAMES:
+        raise AssertionError(f"lm_joint: {len(solves)} routed solves in "
+                             f"{LM_FRAMES} fused frames, expected 6 each")
+    differ, worst_m = 0, 0.0
+    for args, vis, q in solves:
+        k = lm_joint.lm_joint(*args, vis, cfg.solver, **q)
+        p = lm_joint.lm_joint_reference(*args, vis, cfg.solver, **q)
+        if int(k.n_accept) != int(p.n_accept) or bool(
+                k.converged) != bool(p.converged):
+            raise AssertionError("lm_joint: accepted steps or convergence "
+                                 "differ from the plain solve")
+        if not torch.equal(k.T, p.T):
+            differ += 1
+            worst_m = max(worst_m, (k.T - p.T).abs().max().item())
+    if worst_m > 1e-6:
+        raise AssertionError(f"lm_joint: T off the plain solve by {worst_m}")
+    args, vis, q = max(solves, key=lambda s: (int(s[1].mask.sum()),
+                                              int(s[1].mask_nodepth.sum())))
+    prep = lm_joint.prepare(vis, cfg.solver)
+
+    def wrapper():  # the pose-free inputs made once per solve, as _solve does
+        return lm_joint.lm_joint(*args, vis, cfg.solver, **q, prepared=prep)
+
+    calls0 = lm_joint.launches
+    wrapper()
+    calls = lm_joint.launches - calls0
+    nodes = _graph_nodes(wrapper)
+    per_call = sum("lm_joint_kernel" in n for n in nodes)
+    if calls != 1 or per_call != 1 or len(nodes) != 1:
+        raise AssertionError(f"one lm_joint call: {calls} wrapper calls; "
+                             f"a graph of it holds {nodes}")
+    ms = median_ms(wrapper)
+    kernel_ms = graph_ms(wrapper)
+    plain_ms = median_ms(
+        lambda: lm_joint.lm_joint_reference(*args, vis, cfg.solver, **q),
+        bursts=5, calls=3)
+    ne, npl, nt = args[3].shape[0], args[8].shape[0], vis.mask.shape[0]
+    nd, nn = int(vis.mask.sum()), int(vis.mask_nodepth.sum())
+    it = cfg.solver.lm_iters
+    n_bytes = (ne * LM_EDGE_BYTES + npl * (LM_PLANAR_BYTES + LM_QUALITY_BYTES)
+               + nt * LM_TRACK_BYTES + LM_CAMERA_BYTES + LM_SOLVE_BYTES)
+    n_ops = it * ((ne + npl) * (LM_FULL_F64_OPS + LM_COST_F64_OPS)
+                  + nt * LM_TRACK_F64_OPS)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP64_FLOP_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "float64 operations"
+    print(f"lm_joint scan solve ({ne} edges, {npl} planars, {nt} tracks: "
+          f"{nd} with depth, {nn} without; {it} iterations): wrapper "
+          f"{ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+          f"{n_bytes} B, {n_ops} float64 operations); {calls} wrapper call, "
+          f"{per_call} CUDA launch per call (the one node of a CUDA graph "
+          "of the call)", flush=True)
+    print(f"lm_joint: {len(solves)} solves of {LM_FRAMES} fused frames, T "
+          f"bitwise the plain solve's in {len(solves) - differ} (worst "
+          f"{worst_m:.3g})", flush=True)
+    return {"per_shape": [{"solve": "scan", "edges": ne, "planars": npl,
+                           "depth_tracks": nd, "nodepth_tracks": nn,
+                           "ms": ms, "kernel_only_ms": kernel_ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "wrapper_calls": calls,
+                           "cuda_launches_per_call": per_call}],
+            "solves": len(solves), "t_bitwise": len(solves) - differ,
+            "max_abs_err": worst_m}
+
+
 def _pose_errors(a: np.ndarray, b: np.ndarray):
     """Per-frame translation (m) and rotation (deg) difference of poses."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -784,7 +911,7 @@ def _carry_leaves(carry):
 
 def _device_time(prof):
     """(summed card kernel seconds, kernel count, seconds of each of the
-    port's three kernels, launches of each) of a torch.profiler run, read
+    port's four kernels, launches of each) of a torch.profiler run, read
     from the raw Kineto events: ``prof.events()`` would first build a
     Python object for each of the ~0.5 million events of a profiled step,
     which took a minute a frame on the card's host.  The profiler sees the
@@ -809,7 +936,7 @@ def _device_time(prof):
 
 def _profile_calls(fn) -> dict:
     """torch.profiler over ``fn()``: wall, card kernel time and count, busy
-    share, and the port's three kernels' seconds and launches (also inside
+    share, and the port's four kernels' seconds and launches (also inside
     replayed graphs)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -918,7 +1045,7 @@ def pipeline_run(dev, mode, fx, grids) -> dict:
     if prof is not None:
         print(f"{mode}: profile of 2 warm frames: {prof}", flush=True)
         replayed = {k: v / 2 for k, v in prof["launches"].items()}
-        if replayed != dict(zip(KERNELS, per_frame)):
+        if replayed != _per_frame(*per_frame):
             raise AssertionError(f"{mode}: launches per replayed frame "
                                  f"{replayed}")
     graphs.release()
@@ -1034,7 +1161,7 @@ def run_scan_phase(dev, fx, grids, cpu_poses, smi) -> dict:
             captured, odometry.init_carry(cfg, dev), frames[:2]))
         graph_t["busy_share_warm"] = graph_p["device_s"] / 2 * graph_t["fps"]
         replayed = {k: v / 2 for k, v in graph_p["launches"].items()}
-        if replayed != dict(zip(KERNELS, per_frame)):
+        if replayed != _per_frame(*per_frame):
             raise AssertionError(f"run-scan {mode}: launches per replayed "
                                  f"frame {replayed}")
         graphs.release()
@@ -1110,23 +1237,30 @@ def _cli(argv, device=None):
 
 
 def _zero_launches() -> None:
-    """Zero the wrapper-call counters of the port's three kernels."""
-    from velo_tpu_torch.kernels import lm_lidar
+    """Zero the wrapper-call counters of the port's kernels."""
+    from velo_tpu_torch.kernels import lm_joint, lm_lidar
     from velo_tpu_torch.kernels.dist_topk import dist_topk
     from velo_tpu_torch.kernels.klt_l0 import track_level0
 
-    dist_topk.launches = track_level0.launches = lm_lidar.launches = 0
+    dist_topk.launches = track_level0.launches = 0
+    lm_lidar.launches = lm_joint.launches = 0
 
 
 def _launches() -> dict:
-    """The wrapper calls of the port's three kernels since
+    """The wrapper calls of the port's kernels since
     :func:`_zero_launches` (a batched call is one)."""
-    from velo_tpu_torch.kernels import lm_lidar
+    from velo_tpu_torch.kernels import lm_joint, lm_lidar
     from velo_tpu_torch.kernels.dist_topk import dist_topk
     from velo_tpu_torch.kernels.klt_l0 import track_level0
 
     return {"dist_topk": dist_topk.launches, "klt_l0": track_level0.launches,
-            "lm_lidar": lm_lidar.launches}
+            "lm_lidar": lm_lidar.launches, "lm_joint": lm_joint.launches}
+
+
+def _per_frame(dist_per_frame, klt_per_frame, lm_per_frame) -> dict:
+    """Launches per frame of each of ``KERNELS``; ``lm_per_frame`` is
+    (lm_lidar, lm_joint)."""
+    return dict(zip(KERNELS, (dist_per_frame, klt_per_frame, *lm_per_frame)))
 
 
 def _graph_calls(dist_per_frame, klt_per_frame, lm_per_frame,
@@ -1140,8 +1274,10 @@ def _graph_calls(dist_per_frame, klt_per_frame, lm_per_frame,
     from velo_tpu_torch.pipeline import graphs
 
     n = 2 * len(graphs.captures())
-    return {"dist_topk": dist_per_frame * n + eager_dist,
-            "klt_l0": klt_per_frame * n, "lm_lidar": lm_per_frame * n}
+    calls = {k: v * n for k, v in _per_frame(
+        dist_per_frame, klt_per_frame, lm_per_frame).items()}
+    calls["dist_topk"] += eager_dist
+    return calls
 
 
 def _expect_launches(what, launches, dist_per_frame, klt_per_frame,
@@ -1150,9 +1286,9 @@ def _expect_launches(what, launches, dist_per_frame, klt_per_frame,
     least one graph captured where a kernel runs at all."""
     expect = _graph_calls(dist_per_frame, klt_per_frame, lm_per_frame,
                           eager_dist)
-    per_frame = (dist_per_frame, klt_per_frame, lm_per_frame)
+    per_frame = _per_frame(dist_per_frame, klt_per_frame, lm_per_frame)
     if launches != expect or any(
-            k and not launches[name] for name, k in zip(KERNELS, per_frame)):
+            k and not launches[name] for name, k in per_frame.items()):
         raise AssertionError(f"{what}: launches {launches}, expected "
                              f"{expect}")
 
@@ -1317,7 +1453,7 @@ def cli_kitti(dev, tmp, root, smi) -> dict:
         per_pass.append(poses)
     graphs.release()  # the smoother's passes run eagerly
     # Its scan-to-map solves carry no motion prior: the plain LM path.
-    _expect_launches("smoother", _launches(), 0, 0, 0,
+    _expect_launches("smoother", _launches(), 0, 0, LM_NONE,
                      eager_dist=2 * N_FRAMES * SMOOTH_PASSES)
     # The gauge fix re-bases every pose on frame 0: float32 rounding apart,
     # it stays where the forward pass put it.
@@ -1387,7 +1523,7 @@ def cli_variants(tmp) -> dict:
             "--out", os.path.join(tmp, "v-" + name)])
         # --fast's deferred-tail LM bypasses lm_lidar.
         _expect_launches(f"cli {name}", launches, 4, 0,
-                         0 if name == "fast" else LM_LIDAR)
+                         LM_NONE if name == "fast" else LM_LIDAR)
         p = kitti.read_poses(os.path.join(tmp, "v-" + name, "synthetic.txt"))
         if p.shape != (n, 4, 4) or not np.isfinite(p).all():
             raise AssertionError(f"cli {name}: bad pose file {p.shape}")
@@ -2125,7 +2261,7 @@ def long_drive(dev, drive, smi) -> dict:
         carries[wrap + 1], scans_d[wrap + 1:wrap + 3],
         masks_d[wrap + 1:wrap + 3], cfg))
     replayed = {k: v / 2 for k, v in prof["launches"].items()}
-    if replayed != dict(zip(KERNELS, (4, 0, LM_LIDAR))):
+    if replayed != _per_frame(4, 0, LM_LIDAR):
         raise AssertionError(f"long-drive: launches per replayed frame "
                              f"{replayed}")
     graphs.release()
@@ -2483,6 +2619,7 @@ def main() -> int:
         dk = phase("dist_topk", dist_topk_check, dev)
         kk = phase("klt_l0", klt_l0_check, dev, fx)
         lk = phase("lm_lidar", lm_lidar_check, dev, grids)
+        jk = phase("lm_joint", lm_joint_check, dev, fx, grids)
         runs, cpu_poses = {}, {}
         for mode in ("fused", "fused-gather", "lidar", *VARIANTS):
             runs[mode], cpu_poses[mode] = phase(mode, pipeline_run, dev,
@@ -2585,6 +2722,14 @@ def main() -> int:
         t_bitwise=lk["t_bitwise"], solves=lk["solves"],
         **{k: sum(s[k] for s in shapes) / len(shapes)
            for k in ("ms", "plain_ms", "bound_ms")}))
+    # lm_joint's numbers are per solve: the richest scan-to-scan solve.
+    kernels.append(entry(
+        "lm_joint", "velo_tpu_torch/csrc/lm_joint.cu",
+        "solve/lm.lm_solve over the joint LiDAR-visual system with the "
+        "staged prior (plain PyTorch; the reference has no pallas_call "
+        "here)", jk, None,
+        library_call="none: no single PyTorch call runs an LM solve",
+        t_bitwise=jk["t_bitwise"], solves=jk["solves"]))
     print(json.dumps({"pipeline": runs, "phase_seconds": seconds,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,9 +3,10 @@
 
 On the CPU:
 
-* the route: which solves ``icp._solve`` sends to the kernel
-  (``icp._kernel_route``), and the ``lm.kernel`` / ``lm.plain`` counters
-  after one eager step (and with ``ct_sweep``);
+* the route: which solves ``icp._solve`` sends to a kernel
+  (``icp._kernel_route``: ``lm_lidar``, or ``lm_joint`` with ``vis``, not
+  under ``ct_sweep``), and the ``lm.kernel`` / ``lm.plain`` counters after
+  one eager step (and with ``ct_sweep``);
 * the kernel's source built for the host (g++, ``lm_lidar_host``: the same
   arithmetic with the sums in another order) against the plain solve on
   every LM solve of a small drive, Huber and Cauchy, its LiDAR build alone
@@ -279,7 +280,9 @@ def _cfg(**solver):
 
 ROUTES = {
     "cuda_lidar": (_cfg(), True, None, "cuda", True),
-    "vis": (_cfg(), True, object(), "cuda", False),
+    "vis": (_cfg(), True, object(), "cuda", True),
+    "ct_sweep_vis": (_cfg(ct_sweep=True), True, object(), "cuda", False),
+    "ct_sweep_lidar": (_cfg(ct_sweep=True), True, None, "cuda", True),
     "deferred_tail": (_cfg(prior_obs_impl="deferred_tail"), True, None,
                       "cuda", False),
     "deferred": (_cfg(prior_obs_impl="deferred"), True, None, "cuda", False),

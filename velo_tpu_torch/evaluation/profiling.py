@@ -16,8 +16,9 @@ Chrome-trace exporter.
   * ``add`` / ``counters()`` -- process-wide counters of events and host
     seconds (``graphs.launch``: each unprofiled ``graph.replay()``;
     ``lm.kernel`` / ``lm.plain``: each LM solve ``solve/icp._solve`` runs
-    as one ``lm_lidar`` launch or on the plain path, counted when the
-    Python runs: eagerly, or at a graph's warm-up and capture);
+    as one ``lm_lidar`` or ``lm_joint`` launch or on the plain path,
+    counted when the Python runs: eagerly, or at a graph's warm-up and
+    capture);
   * ``trace`` -- context manager around ``torch.profiler`` that writes a
     Chrome trace (``chrome://tracing``, Perfetto) of the card's kernels and
     the host's calls.

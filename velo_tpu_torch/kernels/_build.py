@@ -8,16 +8,17 @@ first use with
 
 plus the source's own flags (``SOURCE_FLAGS``) into
 ``velo_tpu_torch/_build/lib<name>-<sha>.so``, where ``<sha>`` is a hash of
-the source and those flags: an edited source is rebuilt, an unchanged one
-is loaded as built.  Nothing outside the package's own ``csrc/`` is
-compiled, and the library includes no PyTorch header, so a build takes
-seconds.
+the source, the sources it includes (``#include "..."``) and those flags:
+an edited source is rebuilt, an unchanged one is loaded as built.
+Nothing outside the package's own ``csrc/`` is compiled, and the library
+includes no PyTorch header, so a build takes seconds.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,9 +29,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# lm_lidar mirrors the plain path's float32 roundings operation for
-# operation: no multiply and add may fuse.
-SOURCE_FLAGS = {"lm_lidar": ["-fmad=false"]}
+# lm_lidar and lm_joint mirror the plain path's float32 roundings
+# operation for operation: no multiply and add may fuse.
+SOURCE_FLAGS = {"lm_lidar": ["-fmad=false"], "lm_joint": ["-fmad=false"]}
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
@@ -48,10 +50,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
+def _source_bytes(src: Path) -> bytes:
+    """The source and, after it, each source it includes by a quoted
+    ``#include``, recursively."""
+    text = src.read_bytes()
+    return text + b"".join(_source_bytes(src.parent / inc.decode())
+                           for inc in _INCLUDE.findall(text))
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     flags = " ".join(SOURCE_FLAGS.get(name, [])).encode()
-    sha = hashlib.sha256(src.read_bytes() + flags).hexdigest()[:16]
+    sha = hashlib.sha256(_source_bytes(src) + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{sha}.so"
 
 

@@ -16,8 +16,9 @@ from the libraries the plain path calls.
 
 ``icp._solve`` takes this route (``icp._kernel_route``) on the card for
 the LiDAR-only system with the staged prior, no degeneracy remap and a
-Huber or Cauchy loss; every other solve (the visual blocks, the deferred
-loops, the 12-DoF ``ct_sweep`` solve, the CPU) stays on the plain path.
+Huber or Cauchy loss; the same solve with the visual blocks runs as
+``kernels/lm_joint``, and every other solve (the deferred loops, the
+12-DoF ``ct_sweep`` solve, the CPU) stays on the plain path.
 
 The card path is the custom operator ``velo_tpu_torch::lm_lidar`` on a
 leading batch axis; under ``torch.func.vmap`` (``pipeline/batch``) its

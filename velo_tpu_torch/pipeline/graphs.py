@@ -28,7 +28,7 @@ The carry a replay returns is the static carry itself (the reference's
 ``jit_step`` donates its carry the same way): the next call of the same
 configuration overwrites it.  A capture that fails raises, naming the
 line of the operation that refused it; nothing falls back to the eager
-step.  Both kernels' libraries and the stage marks' are built before the
+step.  The kernels' libraries and the stage marks' are built before the
 first capture, and every mark is launched once in the eager warm-up.
 
 Inside the capture the carry's write-back is the step's last stage
@@ -125,6 +125,12 @@ def _where(err: BaseException) -> str:
             f"{f.lineno} `{f.line}`")
 
 
+# The kernels' libraries a step may launch, built (in parallel) before its
+# first capture; lm_joint, the slowest to build, only for a step that
+# carries the visual blocks.
+LIBRARIES = ("dist_topk", "klt_l0", "lm_lidar", "stage_mark")
+
+
 class CapturedStep:
     """``fn(carry, *inputs) -> (new_carry, result)`` on the card, replayed
     from one CUDA graph per cadence key.
@@ -135,10 +141,12 @@ class CapturedStep:
     constants (the frame, the camera).
     """
 
-    def __init__(self, name: str, fn: Callable, cadence: Callable):
+    def __init__(self, name: str, fn: Callable, cadence: Callable,
+                 libraries=LIBRARIES):
         self.name = name
         self._fn = fn
         self._cadence = cadence
+        self._libraries = list(libraries)  # built before the first capture
         self._carry = None  # the static carry, frame_host None
         self._inputs = None  # the static inputs
         self._graphs: dict = {}  # cadence key -> (graph, static result)
@@ -171,7 +179,7 @@ class CapturedStep:
     def _capture(self, key, frame_host):
         from velo_tpu_torch.kernels import _build
 
-        _build.build_all(["dist_topk", "klt_l0", "lm_lidar", "stage_mark"])
+        _build.build_all(self._libraries)
         dev = _tensors(self._carry)[0].device
         carry = self._carry._replace(frame_host=frame_host)
         t0 = time.perf_counter()
@@ -212,7 +220,8 @@ def runner(name: str, cfg, fn: Callable, carry, inputs,
            _signature(inputs))
     found = _runners.get(key)
     if found is None:
-        found = CapturedStep(name, fn, cadence)
+        found = CapturedStep(name, fn, cadence, LIBRARIES + (
+            ("lm_joint",) if cfg.use_vision else ()))
         _runners[key] = found
     return found
 

@@ -24,7 +24,7 @@ from velo_tpu_torch import fp
 from velo_tpu_torch.evaluation import profiling
 from velo_tpu_torch.geom import linalg as lin3
 from velo_tpu_torch.geom import se3
-from velo_tpu_torch.kernels import lm_lidar
+from velo_tpu_torch.kernels import lm_joint, lm_lidar
 from velo_tpu_torch.lidar import deskew as deskew_mod
 from velo_tpu_torch.mapping import dense_nn, voxel_hash
 from velo_tpu_torch.mapping.dense_nn import TargetSet, make_targets  # noqa: F401
@@ -367,11 +367,12 @@ def _use_deferred(cfg, prior_T) -> bool:
 
 
 def _kernel_route(cfg, prior_T, vis, device: torch.device) -> bool:
-    """Whether :func:`_solve` runs its LM solves as one ``lm_lidar`` launch
-    each: on the card, for the LiDAR-only system (no ``vis``) on the staged
-    route (the obs-scaled prior active and not deferred), without the
-    degeneracy remap and with a loss the kernel computes."""
-    return (device.type == "cuda" and vis is None
+    """Whether :func:`_solve` runs its LM solves as one kernel launch each:
+    on the card, on the staged route (the obs-scaled prior active and not
+    deferred), without the degeneracy remap and with a loss the kernels
+    compute; ``lm_lidar`` for the LiDAR-only system, ``lm_joint`` for the
+    6-DoF system with ``vis`` (not the 12-DoF one of ``ct_sweep``)."""
+    return (device.type == "cuda" and (vis is None or not cfg.ct_sweep)
             and _obs_prior_active(cfg, prior_T)
             and not _use_deferred(cfg, prior_T)
             and cfg.degen_rel_min <= 0.0 and cfg.icp_loss in lm_lidar.LOSSES)
@@ -430,14 +431,15 @@ def _solve(edges, edge_mask, planars, planar_mask, T_init, cfg, outer,
     the deferred-reject loop on the full dynamic system
     (``prior_obs_impl="deferred"``) or on the stage (``"deferred_tail"``),
     or on the classic system when the obs prior is inactive.  On the card
-    the staged LiDAR-only solve is one ``lm_lidar`` kernel launch
-    (:func:`_kernel_route`); ``profiling`` counts each solve as
-    ``lm.kernel`` or ``lm.plain``."""
+    the staged solve is one kernel launch (:func:`_kernel_route`):
+    ``lm_lidar``, or ``lm_joint`` with ``vis``; ``profiling`` counts each
+    solve as ``lm.kernel`` or ``lm.plain``."""
     T = T_init
     diag = _empty_diag(T_init.device)
     kernel = _kernel_route(cfg, prior_T, vis, T_init.device)
     if kernel:
         w_pr, prior_inv = _prior_weights(cfg, prior_T, prior_scale)
+        prep = None if vis is None else lm_joint.prepare(vis, cfg)
     for _ in range(outer):
         a, b, e_ok, n, d, p_ok, q_kw = fit(T)
         n_e = torch.sum(e_ok, dtype=torch.int32)
@@ -445,9 +447,10 @@ def _solve(edges, edge_mask, planars, planar_mask, T_init, cfg, outer,
         enough = (n_e + n_p) >= _MIN_CORR
         if kernel:
             profiling.add("lm.kernel")
-            st = lm_lidar.lm_lidar(T, prior_inv, w_pr, edges, edge_mask, a, b,
-                                   e_ok, planars, planar_mask, n, d, p_ok,
-                                   cfg, **q_kw)
+            corr = (T, prior_inv, w_pr, edges, edge_mask, a, b, e_ok, planars,
+                    planar_mask, n, d, p_ok)
+            st = (lm_lidar.lm_lidar(*corr, cfg, **q_kw) if vis is None else
+                  lm_joint.lm_joint(*corr, vis, cfg, **q_kw, prepared=prep))
             T_new = st.T
         else:
             profiling.add("lm.plain")

@@ -73,15 +73,25 @@ def reprojection(p_cam: torch.Tensor, P: torch.Tensor, obs_uv: torch.Tensor,
     return r, torch.stack([du_dp, dv_dp], dim=-2), ok
 
 
-def _epipolar64(M, K, uv_prev, uv_cur):
-    """Float64 pieces of the epipolar residual: (x1, x2, l, s = x2.l,
-    ln = |l_xy|, fx)."""
+MIN_BASELINE = 0.05  # m: the epipolar residual's baseline gate
+
+
+def normalized_tracks(K, uv_prev, uv_cur):
+    """The tracks' homogeneous pixel coordinates through K^-1, in float64:
+    (x1, x2), the pose-free part of :func:`_epipolar64`."""
     # inv_ex: no host check of the result (it captures into a CUDA graph);
     # the same LU inverse as linalg.inv.
     Kinv = torch.linalg.inv_ex(K.to(fp.F64))[0]
     ones = torch.ones_like(uv_prev[..., :1])
     x1 = torch.cat([uv_prev, ones], dim=-1).to(fp.F64) @ Kinv.T
     x2 = torch.cat([uv_cur, ones], dim=-1).to(fp.F64) @ Kinv.T
+    return x1, x2
+
+
+def _epipolar64(M, K, uv_prev, uv_cur):
+    """Float64 pieces of the epipolar residual: (x1, x2, l, s = x2.l,
+    ln = |l_xy|, fx)."""
+    x1, x2 = normalized_tracks(K, uv_prev, uv_cur)
     M = M.to(fp.F64)
     E = se3.hat(M[:3, 3]) @ M[:3, :3]  # (3,3) essential matrix
     l = x1 @ E.T  # epipolar lines in current normalized coordinates
@@ -92,7 +102,7 @@ def _epipolar64(M, K, uv_prev, uv_cur):
 
 def epipolar(M: torch.Tensor, K: torch.Tensor, uv_prev: torch.Tensor,
              uv_cur: torch.Tensor, valid: torch.Tensor,
-             min_baseline: float = 0.05):
+             min_baseline: float = MIN_BASELINE):
     """Point-to-epipolar-line residual (pixels) of tracks without depth.
 
     ``M = [R|t]`` maps previous-camera coordinates into the current camera;
