@@ -170,6 +170,12 @@ from unittest import mock
 import numpy as np
 import torch
 
+from benchmarks import roofline
+from benchmarks.roofline import dist_topk as dist_topk_roof
+from benchmarks.roofline import klt_l0 as klt_l0_roof
+from benchmarks.roofline import lm_lidar as lm_lidar_roof
+from velo_tpu_torch.kernels._build import KERNELS
+
 # (queries, targets, bin_factor) of the four dist_topk calls of one frame at
 # 64 x 2048: edge and planar queries against the previous scan's targets,
 # then against the edge and planar local maps.
@@ -223,25 +229,11 @@ VARIANTS = {"ct-fused": (True, "s:ct_sweep=1", 4, 2, LM_CT_FUSED),
             "nn-xla": (False, "s:nn_approx_impl=xla", 0, 0, LM_LIDAR)}
 VARIANT_CPU_FRAMES = 2  # card against CPU on frames 0-1
 GATE_CPU_M, GATE_CPU_DEG = 0.05, 0.1  # card vs the port's own CPU run
-# H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM rate, float32 outside
-# the tensor cores.
-HBM_BYTES_S = 3.35e12
-FP32_FLOP_S = 67e12
-FP64_FLOP_S = 33.5e12  # float64 outside the tensor cores
-# lm_lidar's bytes: one read of each correspondence (an edge: point, two
-# line points, two masks; a planar: point, normal, offset, two masks; 4 B
-# more for a quality weight where the solve has one; the 8 passes of a
-# solve over them hit L2), of T0, the prior's inverse and weights, and one
-# write of the state (T, lam, cost, converged, last_delta, n_accept).  Its
-# float64 operations per correspondence and pass: the full pass adds 43
-# products into 43 sums and computes ~6 fp helpers of ~3 operations; the
-# cost-only pass the helpers and one sum.
-LM_EDGE_BYTES, LM_PLANAR_BYTES, LM_QUALITY_BYTES = 38, 30, 4
-LM_SOLVE_BYTES = 64 + 64 + 24 + (64 + 4 + 4 + 1 + 4 + 4)
-LM_FULL_F64_OPS, LM_COST_F64_OPS = 2 * 43 + 18, 18 + 1
-# lm_joint adds the tracks (all of the table, masked or not, as the kernel
-# reads them): per track xyz, obs, its weight, two masks and the float64
-# x1, x2, and once the camera (P, T_cam_velo and its inverse, w_scale).
+# The kernels' bounds are benchmarks/roofline's: the H100's peaks and each
+# kernel's work per call.  lm_joint's is lm_lidar's plus the tracks
+# (all of the table, masked or not, as the kernel reads them): per track
+# xyz, obs, its weight, two masks and the float64 x1, x2, and once the
+# camera (P, T_cam_velo and its inverse, w_scale).
 # Float64 operations per track and pass, counted from the source: the
 # reprojection's full pass two residual rows of 43 products and sums plus
 # two transforms, the projection and the 3 x 6 and 2 x 6 chains (~383),
@@ -251,19 +243,8 @@ LM_FULL_F64_OPS, LM_COST_F64_OPS = 2 * 43 + 18, 18 + 1
 LM_TRACK_BYTES = 12 + 8 + 4 + 1 + 1 + 24 + 24
 LM_CAMERA_BYTES = 48 + 64 + 64 + 4
 LM_TRACK_F64_OPS = 383 + 65 + 316 + 27
-# The port's CUDA kernels: each name is in its kernel's and no other's.
-KERNELS = ("dist_topk", "klt_l0", "lm_lidar", "lm_joint")
 LM_FRAMES = 3  # eager frames whose solves lm_lidar_check / lm_joint_check
 # record (LiDAR / fused)
-# klt_l0 arithmetic, counted from its plain version: a template (a track
-# whose support lies inside the image) costs three
-# 15x15 bilinear patches (16x15 row lerps + 15x15 column lerps, 3 ops
-# each, ~1397), Scharr gx and gy on the 16x16 support (9 ops per value,
-# 4608) and three 225-term products and sums (1347); a Gauss-Newton step
-# one patch, the error (225) and two 225-term product sums (898), ~2528.
-KLT_TEMPLATE_OPS = 3 * 1397 + 4608 + 1347
-KLT_STEP_OPS = 1397 + 225 + 898 + 8
-DIST_TOPK_OPS_PER_PAIR = 7  # 4 products and 3 sums of s per query-target
 # What the instruction rate allows dist_topk, beside the bound: the bitwise
 # contract forbids fusing a product with its sum, so a query-target pair is
 # 3 products, 3 sums (the fourth product is by 1) and a minimum at half
@@ -307,15 +288,15 @@ def build() -> None:
     from velo_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build_all(["dist_topk", "klt_l0", "lm_lidar", "lm_joint"])
-    for name in ("dist_topk", "klt_l0", "lm_lidar", "lm_joint"):
+    _build.build_all(KERNELS)
+    for name in KERNELS:
         _build.load(name)
         regs = [ln.strip() for ln in _build.build_logs.get(name, "").split(
             "\n") if "registers" in ln or "spill" in ln]
         print(f"build: {name} nvcc "
               f"{_build.build_seconds.get(name, 0.0):.2f} s; {regs}",
               flush=True)
-    print(f"build: the four kernels in {time.perf_counter() - t0:.2f} s",
+    print(f"build: the kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
     from velo_tpu_torch.io import native_loader
 
@@ -413,10 +394,11 @@ def make_frames():
     return fx, grids
 
 
-def _bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP32_FLOP_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def _bound(n_bytes: float, n_ops: float, least=roofline.least_seconds):
+    """The roofline's least time of the work in ms, and what bounds it
+    (``least``: ``roofline.least_seconds`` or ``least_seconds_f64``)."""
+    by = "bytes" if least(n_bytes, 0) >= least(0, n_ops) else "operations"
+    return 1e3 * least(n_bytes, n_ops), by
 
 
 def _cuda_launches(fn):
@@ -529,8 +511,7 @@ def dist_topk_check(dev) -> dict:
         # Yardstick, used nowhere in the port: exact distances + top-16.
         library_ms = median_ms(lambda: torch.topk(
             torch.cdist(qt, tt), K, dim=1, largest=False))
-        bound_ms, bound_by = _bound_ms(
-            n * 13 + q * 12 + q * K * 8, q * n * DIST_TOPK_OPS_PER_PAIR)
+        bound_ms, bound_by = _bound(*dist_topk_roof.call_work(q, n, K))
         unfused_ms = (1e3 * q * n * DIST_TOPK_SLOTS_PER_PAIR
                     / FP32_LANE_SLOTS_S)
         g = dtk.launch_geometry(q, n, bf, K)
@@ -651,11 +632,8 @@ def klt_l0_check(dev, fx) -> dict:
             bursts=7, calls=3)
         n_tmpl, n_steps, n_px = kl.work(a, b, up, uc, vc, iters)
         k = up.shape[0]
-        # Bytes: the distinct float32 pixels this run's tracks read, both
-        # positions in, uv and ok out.
-        bound_ms, bound_by = _bound_ms(
-            n_px * 4 + 2 * k * 8 + k * 9,
-            n_tmpl * KLT_TEMPLATE_OPS + n_steps * KLT_STEP_OPS)
+        bound_ms, bound_by = _bound(
+            *klt_l0_roof.call_work(k, iters, IMG_H, IMG_W))
         per_call.append({"call": name, "h": IMG_H, "w": IMG_W, "k": k,
                          "iters": iters, "ms": ms, "kernel_only_ms": kernel_ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -741,9 +719,9 @@ def lm_lidar_check(dev, grids) -> dict:
         def wrapper():
             return lm_lidar.lm_lidar(*args, cfg.solver, **q)
 
-        calls0 = lm_lidar.launches
+        _zero_launches()
         wrapper()
-        calls = lm_lidar.launches - calls0
+        calls = _launches()["lm_lidar"]
         nodes = _graph_nodes(wrapper)
         per_call = sum("lm_lidar_kernel" in n for n in nodes)
         if calls != 1 or per_call != 1 or len(nodes) != 1:
@@ -754,14 +732,10 @@ def lm_lidar_check(dev, grids) -> dict:
         plain_ms = median_ms(
             lambda: lm_lidar.lm_lidar_reference(*args, cfg.solver, **q),
             bursts=5, calls=3)
-        n_bytes = (ne * (LM_EDGE_BYTES + LM_QUALITY_BYTES * ("edge_q" in q))
-                   + npl * (LM_PLANAR_BYTES
-                            + LM_QUALITY_BYTES * ("planar_q" in q))
-                   + LM_SOLVE_BYTES)
-        n_ops = it * (ne + npl) * (LM_FULL_F64_OPS + LM_COST_F64_OPS)
-        t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP64_FLOP_S
-        bound_ms = 1e3 * max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "float64 operations"
+        n_bytes, n_ops = lm_lidar_roof.call_work(
+            ne, npl, "edge_q" in q, "planar_q" in q, it)
+        bound_ms, bound_by = _bound(n_bytes, n_ops,
+                                    roofline.least_seconds_f64)
         per_solve.append({"solve": kind, "edges": ne, "planars": npl,
                           "ms": ms, "kernel_only_ms": kernel_ms,
                           "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -842,9 +816,9 @@ def lm_joint_check(dev, fx, grids) -> dict:
     def wrapper():  # the pose-free inputs made once per solve, as _solve does
         return lm_joint.lm_joint(*args, vis, cfg.solver, **q, prepared=prep)
 
-    calls0 = lm_joint.launches
+    _zero_launches()
     wrapper()
-    calls = lm_joint.launches - calls0
+    calls = _launches()["lm_joint"]
     nodes = _graph_nodes(wrapper)
     per_call = sum("lm_joint_kernel" in n for n in nodes)
     if calls != 1 or per_call != 1 or len(nodes) != 1:
@@ -858,13 +832,10 @@ def lm_joint_check(dev, fx, grids) -> dict:
     ne, npl, nt = args[3].shape[0], args[8].shape[0], vis.mask.shape[0]
     nd, nn = int(vis.mask.sum()), int(vis.mask_nodepth.sum())
     it = cfg.solver.lm_iters
-    n_bytes = (ne * LM_EDGE_BYTES + npl * (LM_PLANAR_BYTES + LM_QUALITY_BYTES)
-               + nt * LM_TRACK_BYTES + LM_CAMERA_BYTES + LM_SOLVE_BYTES)
-    n_ops = it * ((ne + npl) * (LM_FULL_F64_OPS + LM_COST_F64_OPS)
-                  + nt * LM_TRACK_F64_OPS)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP64_FLOP_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "float64 operations"
+    n_bytes, n_ops = lm_lidar_roof.call_work(ne, npl, False, True, it)
+    n_bytes += nt * LM_TRACK_BYTES + LM_CAMERA_BYTES
+    n_ops += it * nt * LM_TRACK_F64_OPS
+    bound_ms, bound_by = _bound(n_bytes, n_ops, roofline.least_seconds_f64)
     print(f"lm_joint scan solve ({ne} edges, {npl} planars, {nt} tracks: "
           f"{nd} with depth, {nn} without; {it} iterations): wrapper "
           f"{ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, plain "
@@ -1236,25 +1207,29 @@ def _cli(argv, device=None):
         err.getvalue(), launches
 
 
-def _zero_launches() -> None:
-    """Zero the wrapper-call counters of the port's kernels."""
-    from velo_tpu_torch.kernels import lm_joint, lm_lidar
-    from velo_tpu_torch.kernels.dist_topk import dist_topk
-    from velo_tpu_torch.kernels.klt_l0 import track_level0
+_launch_base: dict = {}
 
-    dist_topk.launches = track_level0.launches = 0
-    lm_lidar.launches = lm_joint.launches = 0
+
+def _kernel_launches() -> dict:
+    """Each of ``KERNELS``'s launches so far in this process, from its
+    ``kernel.<name>`` counter (a batched call is one)."""
+    from velo_tpu_torch.evaluation import profiling
+
+    c = profiling.counters()
+    return {k: c.get(f"kernel.{k}", (0, 0.0))[0] for k in KERNELS}
+
+
+def _zero_launches() -> None:
+    """Take the snapshot of the counters that :func:`_launches` reads
+    from."""
+    _launch_base.update(_kernel_launches())
 
 
 def _launches() -> dict:
-    """The wrapper calls of the port's kernels since
-    :func:`_zero_launches` (a batched call is one)."""
-    from velo_tpu_torch.kernels import lm_joint, lm_lidar
-    from velo_tpu_torch.kernels.dist_topk import dist_topk
-    from velo_tpu_torch.kernels.klt_l0 import track_level0
-
-    return {"dist_topk": dist_topk.launches, "klt_l0": track_level0.launches,
-            "lm_lidar": lm_lidar.launches, "lm_joint": lm_joint.launches}
+    """The launches (wrapper calls) of the port's kernels since
+    :func:`_zero_launches`."""
+    return {k: n - _launch_base.get(k, 0)
+            for k, n in _kernel_launches().items()}
 
 
 def _per_frame(dist_per_frame, klt_per_frame, lm_per_frame) -> dict:
@@ -1913,9 +1888,9 @@ def batch_dist_topk(dev) -> list:
                     t, m, qq, K, bf))(T, M, Q)
 
             for shared in (False, True):
-                before = dtk.dist_topk.launches
+                _zero_launches()
                 d2, idx = vmapped(shared)
-                if dtk.dist_topk.launches != before + 1:
+                if _launches()["dist_topk"] != 1:
                     raise AssertionError("a vmapped dist_topk call is not "
                                          "one launch")
                 for s in range(b):
@@ -1935,9 +1910,8 @@ def batch_dist_topk(dev) -> list:
                     T, M, Q), bursts=5, calls=2)
             library_ms = median_ms(lambda: torch.topk(
                 torch.cdist(Q, T), K, dim=2, largest=False))
-            bound_ms, bound_by = _bound_ms(
-                b * (n * 13 + q * 12 + q * K * 8),
-                b * q * n * DIST_TOPK_OPS_PER_PAIR)
+            bound_ms, bound_by = _bound(
+                *(b * x for x in dist_topk_roof.call_work(q, n, K)))
             g = dtk.launch_geometry(q, n, bf, K, b)
             rows.append({"path": "batch", "batch": b, "q": q, "n": n,
                          "bin_factor": bf, "query_tile": g.tq,
@@ -1988,9 +1962,9 @@ def batch_klt_l0(dev, bi) -> list:
                     *x, vc, iters))(A, C, UP, UC)
 
             for shared in (False, True):
-                before = kl.track_level0.launches
+                _zero_launches()
                 uv, ok = vmapped(shared)
-                if kl.track_level0.launches != before + 1:
+                if _launches()["klt_l0"] != 1:
                     raise AssertionError("a vmapped klt_l0 call is not one "
                                          "launch")
                 for s in range(b):
@@ -2009,19 +1983,14 @@ def batch_klt_l0(dev, bi) -> list:
             plain_ms = median_ms(lambda: torch.func.vmap(
                 lambda *x: kl.track_level0_reference(*x, vc, iters))(
                     A, C, UP, UC), bursts=5, calls=2)
-            work = [kl.work(A[s], C[s], UP[s], UC[s], vc, iters)
-                    for s in range(b)]
-            n_tmpl, n_steps, n_px = (sum(w[i] for w in work)
-                                     for i in range(3))
-            bound_ms, bound_by = _bound_ms(
-                n_px * 4 + b * (2 * BATCH_K * 8 + BATCH_K * 9),
-                n_tmpl * KLT_TEMPLATE_OPS + n_steps * KLT_STEP_OPS)
+            bound_ms, bound_by = _bound(*(
+                b * x for x in klt_l0_roof.call_work(BATCH_K, iters, BATCH_H,
+                                                     BATCH_W)))
             rows.append({"path": "batch", "batch": b, "call": name,
                          "h": BATCH_H, "w": BATCH_W, "k": BATCH_K,
                          "iters": iters, "ms": ms,
                          "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "templates": n_tmpl, "steps": n_steps,
                          "ok": int(ok.sum())})
             print(f"klt_l0 batch B={b} {name} {BATCH_H}x{BATCH_W} K="
                   f"{BATCH_K} iters={iters}: one launch, bitwise equal to "

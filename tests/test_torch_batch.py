@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from velo_tpu_torch import config as tconfig
+from velo_tpu_torch.evaluation import profiling
 from velo_tpu_torch.geom import camera as tcam
 from velo_tpu_torch.io import fixtures, kitti
 from velo_tpu_torch.kernels import dist_topk as dtk
@@ -23,6 +24,12 @@ from velo_tpu_torch.lidar import rangeimage as ri
 from velo_tpu_torch.pipeline import batch, odometry
 from test_torch_dist_topk import _problem
 from test_torch_klt_l0 import _setup
+
+
+def _launches(kernel: str) -> int:
+    """The kernel's launches so far in this process."""
+    return profiling.counters().get(f"kernel.{kernel}", (0, 0.0))[0]
+
 
 torch.set_num_threads(1)
 
@@ -133,14 +140,14 @@ def test_dist_topk_plain_under_vmap(shared):
     the per-sample calls' results, and no launch on the CPU."""
     probs = [_problem(s, 300, 3072) for s in (1, 2, 3)]
     t, tm, qs = (torch.tensor(np.stack(x)) for x in zip(*probs))
-    before = dtk.dist_topk.launches
+    before = _launches("dist_topk")
     if shared:
         d2, idx = torch.func.vmap(
             lambda q: dtk.dist_topk(t[0], tm[0], q, 16, 4))(qs)
     else:
         d2, idx = torch.func.vmap(
             lambda a, m, q: dtk.dist_topk(a, m, q, 16, 4))(t, tm, qs)
-    assert dtk.dist_topk.launches == before
+    assert _launches("dist_topk") == before
     for b in range(3):
         j = 0 if shared else b
         rd2, ridx = dtk.dist_topk_reference(t[j], tm[j], qs[b], 16, 4)
@@ -152,14 +159,14 @@ def test_klt_l0_plain_under_vmap(shared):
     sets = [_setup(s) for s in (4, 5, 6)]
     prev, cur, up, uc = (torch.tensor(np.stack(x)) for x in zip(*sets))
     cfg = tconfig.VisionConfig(height=64, width=512)
-    before = kl.track_level0.launches
+    before = _launches("klt_l0")
     if shared:
         uv, ok = torch.func.vmap(lambda a, b: kl.track_level0(
             prev[0], cur[0], a, b, cfg, 6))(up, uc)
     else:
         uv, ok = torch.func.vmap(lambda *x: kl.track_level0(
             *x, cfg, 6))(prev, cur, up, uc)
-    assert kl.track_level0.launches == before
+    assert _launches("klt_l0") == before
     for b in range(3):
         j = 0 if shared else b
         ruv, rok = kl.track_level0_reference(prev[j], cur[j], up[b], uc[b],

@@ -18,8 +18,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from velo_tpu_torch import config as tconfig
 from velo_tpu_torch.geom import camera as tcam
 from velo_tpu_torch.io import fixtures, kitti
+from velo_tpu_torch.kernels import _build
 from velo_tpu_torch.lidar import rangeimage as tri
 from velo_tpu_torch.pipeline import batch as tbatch
+from velo_tpu_torch.pipeline import graphs
 from velo_tpu_torch.pipeline import odometry as todo
 
 torch.set_num_threads(1)
@@ -125,6 +127,37 @@ def test_batched_step_has_no_host_sync_or_copy(drive):
             carry, _ = step(carry, *(torch.stack([x, x])
                                      for x in (scan, mask, img)))
     assert watch.found == []
+
+
+class _Built(Exception):
+    """Stops a capture once its libraries are asked for."""
+
+
+@pytest.mark.parametrize("name,libraries", [
+    ("lidar", {"dist_topk", "klt_l0", "lm_lidar", "stage_mark"}),
+    ("fused-pallas", {"dist_topk", "klt_l0", "lm_lidar", "lm_joint",
+                      "stage_mark"})])
+def test_first_capture_builds_the_step_libraries(name, libraries,
+                                                 monkeypatch):
+    """What a step builds before its first capture: every kernel a step
+    may launch and the stage marks, and lm_joint (the slowest build) only
+    for a step with images."""
+    built = []
+
+    def build_all(names):
+        built.extend(names)
+        raise _Built
+
+    monkeypatch.setattr(_build, "build_all", build_all)
+    cfg = CONFIGS[name]
+    carry = todo.init_carry(cfg, "cpu")
+    try:
+        with pytest.raises(_Built):
+            graphs.runner("odometry.step", cfg, None, carry, (),
+                          lambda fh: ())(carry)
+    finally:
+        graphs.release()
+    assert len(built) == len(libraries) and set(built) == libraries
 
 
 def test_the_watch_sees_what_a_capture_refuses():

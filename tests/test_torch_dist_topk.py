@@ -11,10 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+from velo_tpu_torch.evaluation import profiling
 from velo_tpu_torch.kernels.dist_topk import (dist_topk, dist_topk_reference,
                                               launch_geometry)
 
 torch.set_num_threads(1)
+
+
+def _launches() -> int:
+    """The dist_topk kernel's launches so far in this process."""
+    return profiling.counters().get("kernel.dist_topk", (0, 0.0))[0]
+
 
 # (queries, targets, bin_factor) of the four calls per frame at the
 # tiny_test_config() shapes (32 x 1024 rings, maps 8192 / 16384) ...
@@ -183,12 +190,12 @@ def test_plain_masked_targets_never_returned():
 
 def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
     t, tm, qs = _problem(3, 256, 1024)
-    before = dist_topk.launches
+    before = _launches()
     a = dist_topk(torch.tensor(t), torch.tensor(tm), torch.tensor(qs), k=8,
                   bin_factor=4)
     b = dist_topk_reference(torch.tensor(t), torch.tensor(tm),
                             torch.tensor(qs), k=8, bin_factor=4)
-    assert dist_topk.launches == before
+    assert _launches() == before
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -200,11 +207,11 @@ def test_kernel_bitwise_equals_plain_on_card(q, n, bf):
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     dev = torch.device("cuda")
     t, tm, qs = (torch.tensor(x, device=dev) for x in _problem(n, q, n))
-    before = dist_topk.launches
+    before = _launches()
     d2, idx = dist_topk(t, tm, qs, k=16, bin_factor=bf)
     rd2, ridx = dist_topk_reference(t, tm, qs, k=16, bin_factor=bf)
     torch.cuda.synchronize()
-    assert dist_topk.launches == before + 1
+    assert _launches() == before + 1
     assert idx.dtype == torch.int32 and d2.dtype == torch.float32
     assert torch.equal(idx, ridx)
     assert torch.equal(d2, rd2)
@@ -266,7 +273,7 @@ def test_vmapped_kernel_is_one_batched_launch_on_card(q, n, bf, shared,
     def plain_reached(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain version")
 
-    before = dist_topk.launches
+    before = _launches()
     with monkeypatch.context() as m:
         m.setattr(dtk, "dist_topk_reference", plain_reached)
         if shared:
@@ -276,7 +283,7 @@ def test_vmapped_kernel_is_one_batched_launch_on_card(q, n, bf, shared,
             d2, idx = torch.func.vmap(
                 lambda a, b, c: dist_topk(a, b, c, 16, bf))(t, tm, qs)
         torch.cuda.synchronize()
-    assert dist_topk.launches == before + 1
+    assert _launches() == before + 1
     assert d2.shape == idx.shape == (4, q, 16)
     for b in range(4):
         j = 0 if shared else b

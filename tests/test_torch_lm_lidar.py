@@ -45,6 +45,12 @@ from velo_tpu_torch.lidar import rangeimage
 from velo_tpu_torch.pipeline import odometry
 from velo_tpu_torch.solve import icp, lm
 
+
+def _launches() -> int:
+    """The lm_lidar kernel's launches so far in this process."""
+    return profiling.counters().get("kernel.lm_lidar", (0, 0.0))[0]
+
+
 ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "velo_tpu_torch" / "csrc" / "lm_lidar.cu"
 CARD_FRAMES = 18  # the benchmark's compare_frames
@@ -370,7 +376,7 @@ def test_entry_points_refuse_cpu_tensors(entry):
     """Nothing runs the kernel's entry points on the CPU: they raise before
     any launch, and the plain solve is ``lm_lidar_reference``."""
     s = _problem(17)
-    n0 = lm_lidar.launches
+    n0 = _launches()
     with pytest.raises(ValueError, match="CUDA tensors only"):
         if entry == "lm_lidar":
             _kernel(s)
@@ -382,7 +388,7 @@ def test_entry_points_refuse_cpu_tensors(entry):
                 lm_lidar._consts(s.cfg))
         else:
             lm_lidar.lidar_system(s.args[0], *s.args[3:], s.cfg, **s.q)
-    assert lm_lidar.launches == n0
+    assert _launches() == n0
 
 
 def _reader():
@@ -480,11 +486,11 @@ def test_card_vmap_batch_is_one_launch(card_solves):
     singles = [_kernel(s) for s in group]
     args = [torch.stack([s.args[i] for s in group]) for i in range(13)]
     qs = [torch.stack([s.q[k] for s in group]) for k in keys]
-    n0 = lm_lidar.launches
+    n0 = _launches()
     batched = torch.func.vmap(lambda *xs: tuple(lm_lidar.lm_lidar(
         *xs[:13], cfg, **dict(zip(keys, xs[13:])))))(*args, *qs)
     torch.cuda.synchronize()
-    assert lm_lidar.launches - n0 == 1
+    assert _launches() - n0 == 1
     for i, single in enumerate(singles):
         assert _same_state([b[i] for b in batched], single)
 

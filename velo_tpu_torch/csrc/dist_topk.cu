@@ -102,22 +102,6 @@ constexpr int kBatch = 8;      // loads a lane has in flight elsewhere
 constexpr int kMaxSmem = 232448;
 constexpr int kDefaultSmem = 48 * 1024;
 
-// Profiling build (kernels/phase_clocks.py; no profiler reaches inside a
-// kernel on a machine without ncu): thread 0 of each of the first blocks
-// records clock64() at the start, after the fold, after the column scan,
-// after the k rounds and after the index recomputation.
-#ifdef DIST_TOPK_PHASE_CLOCKS
-constexpr int kClockBlocks = 1024;
-constexpr int kClockPhases = 5;
-__device__ long long g_phase_clocks[kClockBlocks][kClockPhases];
-#define PHASE_CLOCK(i)                                                   \
-  if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.x < kClockBlocks) { \
-    g_phase_clocks[blockIdx.x][i] = clock64();                           \
-  }
-#else
-#define PHASE_CLOCK(i)
-#endif
-
 struct Args {
   const float* t;            // targets, element (j, c) at t[j * ts0 + c * ts1]
   const unsigned char* mask;  // element j at mask[j * ms0]
@@ -226,7 +210,6 @@ __global__ void __launch_bounds__(kThreads) dist_topk_kernel(const Args batch) {
   const int nb = (a.n / a.tn) * a.nbt;
   const int cs = ((nb + 31) >> 5) | 1;
   const int q_base = blockIdx.x * TQ;
-  PHASE_CLOCK(0)
 
   // Phase 1: strided B-way fold of every tile into its NBt bins.
   {
@@ -278,7 +261,6 @@ __global__ void __launch_bounds__(kThreads) dist_topk_kernel(const Args batch) {
     }
   }
   __syncthreads();
-  PHASE_CLOCK(1)
 
   // Phase 2: warp w extracts query q_base + w.  No block barrier follows.
   const int warp = threadIdx.x >> 5;
@@ -311,7 +293,6 @@ __global__ void __launch_bounds__(kThreads) dist_topk_kernel(const Args batch) {
     }
   }
 
-  PHASE_CLOCK(2)
   for (int r0 = 0; r0 < a.k; r0 += 32) {
     const int cnt = min(32, a.k - r0);
     float my_v = 0.f;
@@ -360,7 +341,6 @@ __global__ void __launch_bounds__(kThreads) dist_topk_kernel(const Args batch) {
       }
     }
 
-    PHASE_CLOCK(3)
     // Lanes in groups of g per winner recompute the first element of each
     // winning bin that attains the bin's minimum.
     int g = 1;
@@ -405,7 +385,6 @@ __global__ void __launch_bounds__(kThreads) dist_topk_kernel(const Args batch) {
       a.out_d2[o] = fmaxf(__fadd_rn(wv, qq), 0.f);
       a.out_idx[o] = max(j0 + ag * a.nbt, 0);
     }
-    PHASE_CLOCK(4)
   }
 }
 
@@ -480,11 +459,3 @@ extern "C" int dist_topk_launch(const void* targets, long long tsb,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-
-#ifdef DIST_TOPK_PHASE_CLOCKS
-// Copies the last launch's clocks, (1024, 5) int64, to host memory.
-extern "C" int dist_topk_phase_clocks(void* out) {
-  return static_cast<int>(
-      cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks)));
-}
-#endif

@@ -16,9 +16,11 @@ Chrome-trace exporter.
   * ``add`` / ``counters()`` -- process-wide counters of events and host
     seconds (``graphs.launch``: each unprofiled ``graph.replay()``;
     ``lm.kernel`` / ``lm.plain``: each LM solve ``solve/icp._solve`` runs
-    as one ``lm_lidar`` or ``lm_joint`` launch or on the plain path,
-    counted when the Python runs: eagerly, or at a graph's warm-up and
-    capture);
+    as one ``lm_lidar`` or ``lm_joint`` launch or on the plain path;
+    ``kernel.<name>``: each launch of one of the port's CUDA kernels,
+    ``kernels/_build.KERNELS``, a batched call one; all counted when the
+    Python runs: eagerly, or at a graph's warm-up and capture, never inside
+    a replay);
   * ``trace`` -- context manager around ``torch.profiler`` that writes a
     Chrome trace (``chrome://tracing``, Perfetto) of the card's kernels and
     the host's calls.
@@ -26,7 +28,6 @@ Chrome-trace exporter.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import os
 
 import torch
@@ -39,7 +40,6 @@ MARKS = STAGES + ("end",)
 MARK_PREFIX = "velo_stage_"
 
 _open: list[str] = []  # the stages open in the capture, innermost last
-_mark_fn = None
 _counters: dict[str, list] = {}  # name -> [count, seconds]
 
 
@@ -55,16 +55,13 @@ def capturing() -> bool:
 
 
 def launch_mark(name: str) -> None:
-    """Enqueue mark ``name`` (of ``MARKS``) on the current CUDA stream."""
-    global _mark_fn
-    if _mark_fn is None:
-        from velo_tpu_torch.kernels import _build
+    """Enqueue mark ``name`` (of ``MARKS``) on the current CUDA stream.  A
+    mark is not counted as a ``kernel.*`` launch: those counters count the
+    compute kernels, and a mark computes nothing."""
+    from velo_tpu_torch.kernels import _build  # which imports this module
 
-        fn = _build.load("stage_mark").velo_stage_mark
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _mark_fn = fn
-    err = _mark_fn(MARKS.index(name), torch.cuda.current_stream().cuda_stream)
+    err = _build.STAGE_MARK(MARKS.index(name),
+                            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"stage mark {name}: CUDA error {err}")
 

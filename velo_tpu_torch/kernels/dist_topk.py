@@ -37,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from velo_tpu_torch import fp
+from velo_tpu_torch.kernels import _build
 
 _BIG = 1e30
 _TQ = 256  # query padding granule of the reference layout
@@ -45,7 +46,10 @@ _MAX_SMEM = 232448  # bytes of shared memory one block can use there
 _THREADS = 256
 _TQ_CHOICES = (8, 4, 2, 1)  # the kernel's register tiles of queries
 
-_fn = None
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_KERNEL = _build.Entry("dist_topk", "dist_topk_launch", [
+    _p, _ll, _ll, _ll, _p, _ll, _ll, _p, _ll, _ll, _ll,
+    _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p, _p])
 
 
 def _pick_tile(n: int) -> int:
@@ -166,20 +170,6 @@ def _select_plain(q_aug, m, tn, nbt, k):
     return torch.cat(out_v, dim=1), torch.cat(out_i, dim=1)
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        from velo_tpu_torch.kernels import _build
-
-        fn = _build.load("dist_topk").dist_topk_launch
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, ll, ll, p, ll, ll, p, ll, ll, ll,
-                       i, i, i, i, i, i, i, i, i, i, p, p, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def _launch(targets, tmask, queries, k, bin_factor):
     """One kernel launch for a batch: targets (B, N, 3), tmask (B, N),
     queries (B, Q, 3), any strides (a batch stride of 0 shares an input)
@@ -188,16 +178,11 @@ def _launch(targets, tmask, queries, k, bin_factor):
     g = launch_geometry(q, n, bin_factor, k, b)
     d2 = torch.empty((b, q, k), dtype=torch.float32, device=queries.device)
     idx = torch.empty((b, q, k), dtype=torch.int32, device=queries.device)
-    fn = _kernel_fn()
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream(queries.device).cuda_stream
-        err = fn(targets.data_ptr(), *targets.stride(), tmask.data_ptr(),
-                 *tmask.stride(), queries.data_ptr(), *queries.stride(),
-                 b, q, n, g.tn, g.nbt, k, g.tq, g.threads, g.blocks,
-                 g.smem_bytes, d2.data_ptr(), idx.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"dist_topk kernel launch failed: CUDA error {err}")
-    dist_topk.launches += 1
+    _KERNEL.launch(queries, targets.data_ptr(), *targets.stride(),
+                   tmask.data_ptr(), *tmask.stride(), queries.data_ptr(),
+                   *queries.stride(), b, q, n, g.tn, g.nbt, k, g.tq,
+                   g.threads, g.blocks, g.smem_bytes, d2.data_ptr(),
+                   idx.data_ptr())
     return d2, idx
 
 
@@ -221,22 +206,7 @@ def _(targets, tmask, queries, k, bin_factor):
             queries.new_empty(shape, dtype=torch.int32))
 
 
-@_batched.register_vmap
-def _(info, in_dims, targets, tmask, queries, k, bin_factor):
-    """The vmapped axis joins the batch axis: one launch for all."""
-    args = [batch_front(x, d, info.batch_size)
-            for x, d in zip((targets, tmask, queries), in_dims[:3])]
-    d2, idx = _batched(*args, k, bin_factor)
-    v = info.batch_size
-    return (d2.view(v, -1, *d2.shape[1:]),
-            idx.view(v, -1, *idx.shape[1:])), (0, 0)
-
-
-def batch_front(x: torch.Tensor, dim, size: int) -> torch.Tensor:
-    """``x`` with its vmapped axis ``dim`` (None: unbatched, expanded at
-    stride 0) merged into its leading batch axis: (size * B, ...)."""
-    x = x.expand(size, *x.shape) if dim is None else x.movedim(dim, 0)
-    return x.reshape(size * x.shape[1], *x.shape[2:])
+_build.register_vmap(_batched)
 
 
 def _finish(queries, s_sel, idx):
@@ -259,9 +229,10 @@ def dist_topk(targets: torch.Tensor, tmask: torch.Tensor,
       bin_factor: B-way fold of each target tile.
 
     Returns (d2 (Q, k) float32 ascending, idx (Q, k) int32).  A CUDA tensor
-    runs the kernel (and counts one launch in ``dist_topk.launches``; under
-    ``torch.func.vmap``, one launch for the whole batch); a CPU tensor runs
-    :func:`dist_topk_reference`'s plain path.
+    runs the kernel (one launch, counted as ``kernel.dist_topk`` in
+    ``profiling.counters()``; under ``torch.func.vmap``, one launch for the
+    whole batch); a CPU tensor runs :func:`dist_topk_reference`'s plain
+    path.
     """
     if targets.device.type == "cuda":
         _check(targets, tmask, queries)
@@ -271,9 +242,6 @@ def dist_topk(targets: torch.Tensor, tmask: torch.Tensor,
     if targets.device.type == "cpu":
         return dist_topk_reference(targets, tmask, queries, k, bin_factor)
     raise ValueError(f"dist_topk: unsupported device {targets.device}")
-
-
-dist_topk.launches = 0
 
 
 def dist_topk_reference(targets: torch.Tensor, tmask: torch.Tensor,

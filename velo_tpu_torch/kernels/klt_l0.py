@@ -42,7 +42,7 @@ from typing import NamedTuple
 
 import torch
 
-from velo_tpu_torch.kernels.dist_topk import batch_front
+from velo_tpu_torch.kernels import _build
 from velo_tpu_torch.vision import pyramid as pyr
 
 PB_R = 32  # previous-image block rows
@@ -53,7 +53,11 @@ _DET_MIN = 1e-9
 _NAN_POS = -1e6
 _SAT = 2.0 ** 30  # float -> int saturation of the address arithmetic
 
-_fn = None
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_KERNEL = _build.Entry(
+    "klt_l0", "klt_l0_launch",
+    [_p, _ll, _p, _ll, _i, _i, _p, _ll, _p, _ll, _i, _i, _i, _p, _p],
+    plain="track_level0_reference")
 
 
 def fits(H: int, W: int) -> bool:
@@ -219,19 +223,6 @@ def _plain(prev, cur, uv_prev, uv_cur, h, iters):
     return torch.stack([x, y], dim=-1), t.ok & inb
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        from velo_tpu_torch.kernels import _build
-
-        fn = _build.load("klt_l0").klt_l0_launch
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, p, ll, i, i, p, ll, p, ll, i, i, i, p, p, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """``x`` (B, ...) with each sequence's block contiguous; the batch
     stride stays what it is (0 for an input shared by all)."""
@@ -246,16 +237,10 @@ def _launch(prev, cur, uv_prev, uv_cur, iters):
     K = uv_prev.shape[1]
     uv_out = torch.empty((B, K, 2), dtype=torch.float32, device=prev.device)
     ok_out = torch.empty((B, K), dtype=torch.bool, device=prev.device)
-    fn = _kernel_fn()
-    with torch.cuda.device(prev.device):
-        stream = torch.cuda.current_stream(prev.device).cuda_stream
-        err = fn(prev.data_ptr(), prev.stride(0), cur.data_ptr(),
-                 cur.stride(0), H, W, uv_prev.data_ptr(), uv_prev.stride(0),
-                 uv_cur.data_ptr(), uv_cur.stride(0), K, iters, B,
-                 uv_out.data_ptr(), ok_out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"klt_l0 kernel launch failed: CUDA error {err}")
-    track_level0.launches += 1
+    _KERNEL.launch(prev, prev.data_ptr(), prev.stride(0), cur.data_ptr(),
+                   cur.stride(0), H, W, uv_prev.data_ptr(), uv_prev.stride(0),
+                   uv_cur.data_ptr(), uv_cur.stride(0), K, iters, B,
+                   uv_out.data_ptr(), ok_out.data_ptr())
     return uv_out, ok_out
 
 
@@ -278,14 +263,7 @@ def _(prev, cur, uv_prev, uv_cur, iters):
             uv_prev.new_empty((B, K), dtype=torch.bool))
 
 
-@_batched.register_vmap
-def _(info, in_dims, prev, cur, uv_prev, uv_cur, iters):
-    """The vmapped axis joins the batch axis: one launch for all."""
-    v = info.batch_size
-    uv, ok = _batched(*(batch_front(x, d, v) for x, d in zip(
-        (prev, cur, uv_prev, uv_cur), in_dims[:4])), iters)
-    return (uv.view(v, -1, *uv.shape[1:]), ok.view(v, -1, *ok.shape[1:])), \
-        (0, 0)
+_build.register_vmap(_batched)
 
 
 def track_level0(prev_img: torch.Tensor, cur_img: torch.Tensor,
@@ -300,9 +278,10 @@ def track_level0(prev_img: torch.Tensor, cur_img: torch.Tensor,
       cfg: a ``VisionConfig`` (``klt_halfwin`` must be 7).
       iters: Gauss-Newton steps.
 
-    A CUDA tensor runs the kernel (and counts one launch in
-    ``track_level0.launches``; under ``torch.func.vmap``, one launch for
-    the whole batch); a CPU tensor runs the plain version.
+    A CUDA tensor runs the kernel (one launch, counted as
+    ``kernel.klt_l0`` in ``profiling.counters()``; under
+    ``torch.func.vmap``, one launch for the whole batch); a CPU tensor runs
+    the plain version.
     """
     _check(prev_img, cur_img, uv_prev, uv_cur, cfg, iters)
     if prev_img.device.type == "cuda":
@@ -312,9 +291,6 @@ def track_level0(prev_img: torch.Tensor, cur_img: torch.Tensor,
     if prev_img.device.type == "cpu":
         return _plain(prev_img, cur_img, uv_prev, uv_cur, HALFWIN, iters)
     raise ValueError(f"track_level0: unsupported device {prev_img.device}")
-
-
-track_level0.launches = 0
 
 
 def track_level0_reference(prev_img, cur_img, uv_prev, uv_cur, cfg,

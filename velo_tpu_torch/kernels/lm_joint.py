@@ -49,17 +49,13 @@ import numpy as np
 import torch
 
 from velo_tpu_torch.geom import se3
-from velo_tpu_torch.kernels import lm_lidar
-from velo_tpu_torch.kernels.dist_topk import batch_front
+from velo_tpu_torch.kernels import _build, lm_lidar
 from velo_tpu_torch.solve import lm
 from velo_tpu_torch.solve import residuals as res
 
 _VIS_VIEWS = ("xyz", "obs_uv", "mask", "w_lm", "w_scale", "P", "T_cam_velo",
               "T_vc", "mask_nodepth", "x1", "x2")
 _N_LIDAR = len(lm_lidar._VIEWS)
-
-_fn = None
-launches = 0  # kernel launches so far (a batched call is one)
 
 
 class VisArgs(ctypes.Structure):
@@ -160,42 +156,18 @@ def vis_args(lidar: dict, tensors: dict, vconsts) -> VisArgs:
     return v
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        from velo_tpu_torch.kernels import _build
-
-        fn = _build.load("lm_joint").lm_joint_launch
-        fn.argtypes = [ctypes.POINTER(lm_lidar.Args), ctypes.POINTER(VisArgs),
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
-def _require_cuda(x: torch.Tensor) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"lm_joint runs on CUDA tensors only, not "
-                         f"{x.device}: the plain version is "
-                         "lm_joint_reference")
+_KERNEL = _build.Entry("lm_joint", "lm_joint_launch",
+                       [ctypes.POINTER(lm_lidar.Args), ctypes.POINTER(VisArgs)])
 
 
 def _launch(lidar: dict, tensors: dict, iters, stage_iters, loss, consts,
             vconsts, mode=0) -> dict:
     """One launch for a batch of (B, ...) inputs -> the outputs."""
-    dev = lidar["T0"].device
-    _require_cuda(lidar["T0"])
-    outs = lm_lidar._outputs(lidar["T0"].shape[0], dev, mode)
+    t0 = lidar["T0"]
+    outs = lm_lidar._outputs(t0.shape[0], t0.device, mode)
     a = lm_lidar.args(lidar, outs, iters, stage_iters, loss, consts, mode)
     v = vis_args(lidar, tensors, vconsts)
-    fn = _kernel_fn()
-    with torch.cuda.device(dev):
-        err = fn(ctypes.byref(a), ctypes.byref(v),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lm_joint kernel launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    _KERNEL.launch(t0, ctypes.byref(a), ctypes.byref(v))
     return outs
 
 
@@ -237,19 +209,7 @@ def _(T0, *rest, **kw):
             T0.new_empty((b,), dtype=torch.int32))
 
 
-_N_TENSORS = _N_LIDAR + len(_VIS_VIEWS)
-
-
-@_batched.register_vmap
-def _(info, in_dims, *inputs):
-    """The vmapped axis joins the batch axis: one launch for all."""
-    tensors, scalars = inputs[:_N_TENSORS], inputs[_N_TENSORS:]
-    folded = [None if x is None else batch_front(x, d, info.batch_size)
-              for x, d in zip(tensors, in_dims[:_N_TENSORS])]
-    outs = _batched(*folded, *scalars)
-    v = info.batch_size
-    return (tuple(o.view(v, -1, *o.shape[1:]) for o in outs),
-            (0,) * len(outs))
+_build.register_vmap(_batched)
 
 
 def _vconsts(cfg, prep: Prepared) -> list[float]:
@@ -277,11 +237,11 @@ def lm_joint(T0, prior_inv, w_prior, edges, edge_mask, a, b, e_ok, planars,
       prepared: ``prepare(vis, cfg)``, where a caller solves several times
         with the same ``vis``; else made here.
 
-    Returns the final ``lm.LMState`` of one launch, counted in the
-    module's ``launches``.  The tensors must be on the card (else
-    ``ValueError``).
+    Returns the final ``lm.LMState`` of one launch, counted as
+    ``kernel.lm_joint`` in ``profiling.counters()``.  The tensors must be
+    on the card (else ``ValueError``).
     """
-    _require_cuda(T0)
+    _KERNEL.require_cuda(T0)
     prep = prepare(vis, cfg) if prepared is None else prepared
     outs = _batched(*_inputs(T0, prior_inv, w_prior, edges, edge_mask, a, b,
                              e_ok, planars, planar_mask, n, d, p_ok, prep,

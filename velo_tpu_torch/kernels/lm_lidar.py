@@ -32,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from velo_tpu_torch.kernels.dist_topk import batch_front
+from velo_tpu_torch.kernels import _build
 from velo_tpu_torch.solve import lm
 
 # The float SolverConfig fields the solve reads, passed to the operator as
@@ -44,9 +44,6 @@ LOSSES = ("huber", "cauchy")  # the values of icp_loss the kernel computes
 _VIEWS = ("T0", "prior_inv", "w_prior", "edges", "edge_mask", "a", "b", "e_ok",
           "edge_q", "planars", "planar_mask", "n", "d", "p_ok", "planar_q")
 _SYS = 43  # H (36), g (6), cost
-
-_fn = None
-launches = 0  # kernel launches so far (a batched call is one)
 
 
 class _View(ctypes.Structure):
@@ -130,16 +127,7 @@ def args(tensors: dict, outs: dict, iters: int, stage_iters: int, loss: str,
     return a
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        from velo_tpu_torch.kernels import _build
-
-        fn = _build.load("lm_lidar").lm_lidar_launch
-        fn.argtypes = [ctypes.POINTER(Args), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_KERNEL = _build.Entry("lm_lidar", "lm_lidar_launch", [ctypes.POINTER(Args)])
 
 
 def _outputs(b: int, device, mode: int) -> dict:
@@ -153,26 +141,12 @@ def _outputs(b: int, device, mode: int) -> dict:
             "out_last": empty(b), "out_nacc": empty(b, dtype=torch.int32)}
 
 
-def _require_cuda(x: torch.Tensor) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"lm_lidar runs on CUDA tensors only, not "
-                         f"{x.device}: the plain version is "
-                         "lm_lidar_reference")
-
-
 def _launch(tensors: dict, iters, stage_iters, loss, consts, mode=0) -> dict:
     """One launch for a batch of (B, ...) inputs -> the outputs."""
-    dev = tensors["T0"].device
-    _require_cuda(tensors["T0"])
-    outs = _outputs(tensors["T0"].shape[0], dev, mode)
+    t0 = tensors["T0"]
+    outs = _outputs(t0.shape[0], t0.device, mode)
     a = args(tensors, outs, iters, stage_iters, loss, consts, mode)
-    fn = _kernel_fn()
-    with torch.cuda.device(dev):
-        err = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lm_lidar kernel launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    _KERNEL.launch(t0, ctypes.byref(a))
     return outs
 
 
@@ -204,16 +178,7 @@ def _(T0, *rest, **kw):
             T0.new_empty((b,), dtype=torch.int32))
 
 
-@_batched.register_vmap
-def _(info, in_dims, *inputs):
-    """The vmapped axis joins the batch axis: one launch for all."""
-    tensors, scalars = inputs[:len(_VIEWS)], inputs[len(_VIEWS):]
-    folded = [None if x is None else batch_front(x, d, info.batch_size)
-              for x, d in zip(tensors, in_dims[:len(_VIEWS)])]
-    outs = _batched(*folded, *scalars)
-    v = info.batch_size
-    return (tuple(o.view(v, -1, *o.shape[1:]) for o in outs),
-            (0,) * len(outs))
+_build.register_vmap(_batched)
 
 
 def _consts(cfg) -> list[float]:
@@ -236,11 +201,11 @@ def lm_lidar(T0, prior_inv, w_prior, edges, edge_mask, a, b, e_ok, planars,
         rest float32.
       cfg: the ``SolverConfig``.
 
-    Returns the final ``lm.LMState`` of one launch, counted in the
-    module's ``launches``.  The tensors must be on the card (else
-    ``ValueError``).
+    Returns the final ``lm.LMState`` of one launch, counted as
+    ``kernel.lm_lidar`` in ``profiling.counters()``.  The tensors must be
+    on the card (else ``ValueError``).
     """
-    _require_cuda(T0)
+    _KERNEL.require_cuda(T0)
     inputs = (T0, prior_inv, w_prior, edges, edge_mask, a, b, e_ok, edge_q,
               planars, planar_mask, n, d, p_ok, planar_q)
     outs = _batched(*(None if x is None else x[None] for x in inputs),

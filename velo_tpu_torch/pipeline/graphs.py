@@ -50,6 +50,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from velo_tpu_torch.evaluation import profiling
+from velo_tpu_torch.kernels import _build
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -125,12 +126,6 @@ def _where(err: BaseException) -> str:
             f"{f.lineno} `{f.line}`")
 
 
-# The kernels' libraries a step may launch, built (in parallel) before its
-# first capture; lm_joint, the slowest to build, only for a step that
-# carries the visual blocks.
-LIBRARIES = ("dist_topk", "klt_l0", "lm_lidar", "stage_mark")
-
-
 class CapturedStep:
     """``fn(carry, *inputs) -> (new_carry, result)`` on the card, replayed
     from one CUDA graph per cadence key.
@@ -142,7 +137,7 @@ class CapturedStep:
     """
 
     def __init__(self, name: str, fn: Callable, cadence: Callable,
-                 libraries=LIBRARIES):
+                 libraries=_build.step_libraries(use_vision=False)):
         self.name = name
         self._fn = fn
         self._cadence = cadence
@@ -177,8 +172,6 @@ class CapturedStep:
         return self._carry._replace(frame_host=frame_host + 1), out
 
     def _capture(self, key, frame_host):
-        from velo_tpu_torch.kernels import _build
-
         _build.build_all(self._libraries)
         dev = _tensors(self._carry)[0].device
         carry = self._carry._replace(frame_host=frame_host)
@@ -220,8 +213,8 @@ def runner(name: str, cfg, fn: Callable, carry, inputs,
            _signature(inputs))
     found = _runners.get(key)
     if found is None:
-        found = CapturedStep(name, fn, cadence, LIBRARIES + (
-            ("lm_joint",) if cfg.use_vision else ()))
+        found = CapturedStep(name, fn, cadence,
+                             _build.step_libraries(cfg.use_vision))
         _runners[key] = found
     return found
 
