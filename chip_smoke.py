@@ -7,9 +7,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. card check: a CUDA device must be present; prints its name and power
    limit as nvidia-smi reports them;
 2. build: compiles ``velo_tpu_torch/csrc/dist_topk.cu``, ``klt_l0.cu``,
-   ``lm_lidar.cu`` and ``lm_joint.cu`` with nvcc (sm_90a), one process
-   each, started together, then the native loader and PNG unfilter with
-   g++;
+   ``lm_lidar.cu``, ``lm_joint.cu`` and ``corr_fit.cu`` with nvcc
+   (sm_90a), one process each, started together, then the native loader
+   and PNG unfilter with g++;
 3. fixture: one full-scale drive (64 x 2048 LiDAR, 192 x 640 images,
    4 frames, seed 0), host-pre-binned once and shared by the phases below;
 4. kernel checks at the shapes of the odometry path, each kernel against
@@ -31,7 +31,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bound from one read of its inputs and its float64 operations;
    ``lm_joint`` the same on every joint (LiDAR-visual) solve of 3 eager
    fused frames (6 a frame: the scan-to-scan solves), timed on the one
-   with the most depth tracks;
+   with the most depth tracks; ``corr_fit`` on every correspondence fit of
+   3 eager LiDAR frames, dense and hash engine (9 a frame), bitwise against
+   its plain version, with the wrapper's, the kernel's (20 calls replayed
+   from a CUDA graph) and the plain version's ms per call of a
+   scan-to-scan and a map fit, one wrapper call and one card kernel per
+   call, and the bound from one read of its inputs and one write of its
+   outputs.  Every phase below also expects 9 ``corr_fit`` launches a frame
+   (one per ICP outer iteration; 8 under ``ct_sweep``, whose redeskew
+   solve is gone), and the smoother's 3 a frame and pass;
 5. fused pipeline: the 4 frames through ``pipeline.odometry.run_sequence``
    at the bench's fused configuration with ``klt_impl="pallas"``; on the
    card each frame is one replay of a CUDA graph of the step, one graph per
@@ -64,7 +72,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
 7b. run-scan, this slice's path: ``odometry.run_scan`` fused and
    LiDAR-only on the same frames, bitwise against the eager ``step`` loop
    on the card and against the CPU runs of 5 and 7; launches per replayed
-   frame of each of the four kernels from a profile; graphs captured and
+   frame of each of the port's kernels from a profile; graphs captured and
    their seconds; warm frames/s,
    host ms per frame and the card's busy share, captured beside eager;
 8. export: ``io.fake_kitti.export`` writes 4 full-scale frames (HDL-64E
@@ -193,6 +201,9 @@ K = 16
 # time limit (the smoother's window maps keep their 2 * 8 + 1 frames of
 # padded shape).
 N_FRAMES = 4
+# The smoother's corr_fit calls over N_FRAMES: a scan-to-map solve of
+# icp_iters_map (3) outer iterations per frame and pass, each one fit.
+SMOOTH_CORR = 3 * N_FRAMES * SMOOTH_PASSES
 N_VARIANT_FRAMES = 4
 GATE_REL_M = 0.10  # median relative per-frame motion vs ground truth (m)
 KITTI_SET = "v:klt_impl=pallas"  # --set of the command line's KITTI run
@@ -211,12 +222,15 @@ GATE_GT_DEG = {"lidar": 1.0, "fused": 1.5, "fused-gather": 1.5,
                "klt-matmul": 1.5, "klt-window": 1.5, "nn-xla": 1.0}  # (deg)
 # The solver variants that --set selects, each a cell of its own at the
 # fixture's full width: (fused, --set, dist_topk and klt_l0 launches per
-# frame, (lm_lidar, lm_joint) launches per frame).  The hash engine
-# bypasses dist_topk in both solves.  lm_lidar runs each LM solve of the
-# LiDAR-only system: 3 scan-to-map and 5 + 1 scan-to-scan a LiDAR frame;
-# a fused frame's 5 + 1 scan-to-scan solves carry the visual blocks and
-# run on lm_joint; ct_sweep's are 12-DoF and stay plain.
-LM_LIDAR, LM_FUSED, LM_CT_FUSED, LM_NONE = (9, 0), (3, 6), (3, 0), (0, 0)
+# frame, (lm_lidar, lm_joint, corr_fit) launches per frame).  The hash
+# engine bypasses dist_topk in both solves.  lm_lidar runs each LM solve of
+# the LiDAR-only system: 3 scan-to-map and 5 + 1 scan-to-scan a LiDAR
+# frame; a fused frame's 5 + 1 scan-to-scan solves carry the visual blocks
+# and run on lm_joint; ct_sweep's are 12-DoF and stay plain, and --fast's
+# deferred-tail LM bypasses both.  corr_fit runs each outer iteration's
+# fit: 9 a frame, 8 with ct_sweep (5 + 3: no redeskew solve).
+LM_LIDAR, LM_FUSED, LM_CT_FUSED = (9, 0, 9), (3, 6, 9), (3, 0, 8)
+LM_FAST, LM_NONE = (0, 0, 9), (0, 0, 0)
 VARIANTS = {"ct-fused": (True, "s:ct_sweep=1", 4, 2, LM_CT_FUSED),
             "exact-lag": (False, "s:deskew_exact_lag=1", 4, 0, LM_LIDAR),
             "hash": (False, "s:nn_engine=hash", 0, 0, LM_LIDAR),
@@ -856,6 +870,116 @@ def lm_joint_check(dev, fx, grids) -> dict:
             "max_abs_err": worst_m}
 
 
+def _fit_bytes(args, line) -> int:
+    """Bytes of one ``corr_fit`` call: each input read once (points,
+    validity, rings for the 2-point lines, queries, masks) and each output
+    written once."""
+    edge, pe, _, planar, pp, _ = args[:6]
+    total = 0
+    for rows, q, out_f32 in ((edge, pe.shape[0], 7),
+                             (planar, pp.shape[0], 5)):
+        c = rows.pts.shape[1]
+        total += q * c * (12 + 1) + q * (12 + 1)  # rows, ok; queries, mask
+        total += q * (out_f32 * 4 + 1)  # float32 outputs and ok
+    if not line:
+        total += pe.shape[0] * edge.pts.shape[1] * 4  # rings
+    return total
+
+
+def corr_fit_check(dev, grids) -> dict:
+    """The one-launch correspondence fit at the path's shapes: every fit of
+    the fixture's first LM_FRAMES LiDAR frames, dense engine and hash
+    engine, stepped eagerly on the card, kernel against its plain version
+    on the card (all outputs bitwise); for a scan-to-scan (2-point lines)
+    and a map (PCA lines) fit of each engine the card ms per call of the
+    wrapper (CUDA events around eager calls), of the kernel alone (20
+    calls replayed from a CUDA graph) and of the plain version, the wrapper
+    calls and the card kernels of one call (1 each, the kernels counted as
+    the nodes of a CUDA graph of the call) and the bound from its bytes
+    (its operations are not counted)."""
+    from velo_tpu_torch.kernels import corr_fit
+    from velo_tpu_torch.kernels._timing import graph_ms, median_ms
+    from velo_tpu_torch.pipeline import odometry
+
+    def clone(x):
+        if isinstance(x, corr_fit.Rows):
+            return x._replace(pts=x.pts.clone(), payload=x.payload.clone(),
+                              ok=x.ok.clone())
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def bitwise(a, b) -> bool:
+        return all((x is None and y is None) or torch.equal(
+            x.view(torch.int32) if x.is_floating_point() else x,
+            y.view(torch.int32) if y.is_floating_point() else y)
+            for x, y in zip(a, b))
+
+    real, per_call, n_fits = corr_fit.corr_fit, [], 0
+    for mode in ("lidar", "hash"):
+        cfg, _ = _cell_config(mode)
+        calls = []
+
+        def record(*args, line=False):
+            calls.append((tuple(clone(x) for x in args), line))
+            return real(*args, line=line)
+
+        corr_fit.corr_fit = record
+        try:
+            carry = odometry.init_carry(cfg, dev)
+            for g, m in grids[:LM_FRAMES]:
+                carry, _ = odometry.step(
+                    carry, torch.as_tensor(g, device=dev),
+                    torch.as_tensor(m, device=dev), cfg)
+        finally:
+            corr_fit.corr_fit = real
+        if len(calls) != 9 * LM_FRAMES:
+            raise AssertionError(f"corr_fit {mode}: {len(calls)} fits in "
+                                 f"{LM_FRAMES} LiDAR frames, expected 9 each")
+        for i, (args, line) in enumerate(calls):
+            if not bitwise(real(*args, line=line),
+                           corr_fit.corr_fit_reference(*args, line=line)):
+                raise AssertionError(f"corr_fit {mode}: fit {i} differs from "
+                                     "its plain version")
+        n_fits += len(calls)
+        for kind, line in (("scan", False), ("map", True)):
+            args = [a for a, ln in calls if ln == line][-1]
+
+            def wrapper():
+                return real(*args, line=line)
+
+            _zero_launches()
+            wrapper()
+            n_calls = _launches()["corr_fit"]
+            nodes = _graph_nodes(wrapper)
+            per_launch = sum("corr_fit_kernel" in n for n in nodes)
+            if n_calls != 1 or per_launch != 1 or len(nodes) != 1:
+                raise AssertionError(f"one corr_fit call: {n_calls} wrapper "
+                                     f"calls; a graph of it holds {nodes}")
+            ms = median_ms(wrapper)
+            kernel_ms = graph_ms(wrapper)
+            plain_ms = median_ms(
+                lambda: corr_fit.corr_fit_reference(*args, line=line),
+                bursts=5, calls=3)
+            n_bytes = _fit_bytes(args, line)
+            bound_ms, bound_by = _bound(n_bytes, 0)
+            qe, qp = args[1].shape[0], args[4].shape[0]
+            per_call.append({"engine": mode, "fit": kind, "edges": qe,
+                             "planars": qp, "candidates":
+                             args[0].pts.shape[1], "ms": ms,
+                             "kernel_only_ms": kernel_ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by + " (operations not "
+                             "counted)", "wrapper_calls": n_calls,
+                             "cuda_launches_per_call": per_launch})
+            print(f"corr_fit {mode} {kind} fit ({qe} edges, {qp} planars, "
+                  f"C = {args[0].pts.shape[1]}): wrapper {ms:.4f} ms, "
+                  f"kernel alone {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, bound {bound_ms:.6f} ms ({n_bytes} B); {per_launch} "
+                  "CUDA launch per call", flush=True)
+    print(f"corr_fit: {n_fits} fits of {LM_FRAMES} LiDAR frames (dense and "
+          "hash), each bitwise its plain version", flush=True)
+    return {"per_shape": per_call, "fits": n_fits, "max_abs_err": 0.0}
+
+
 def _pose_errors(a: np.ndarray, b: np.ndarray):
     """Per-frame translation (m) and rotation (deg) difference of poses."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -882,7 +1006,7 @@ def _carry_leaves(carry):
 
 def _device_time(prof):
     """(summed card kernel seconds, kernel count, seconds of each of the
-    port's four kernels, launches of each) of a torch.profiler run, read
+    port's kernels, launches of each) of a torch.profiler run, read
     from the raw Kineto events: ``prof.events()`` would first build a
     Python object for each of the ~0.5 million events of a profiled step,
     which took a minute a frame on the card's host.  The profiler sees the
@@ -907,7 +1031,7 @@ def _device_time(prof):
 
 def _profile_calls(fn) -> dict:
     """torch.profiler over ``fn()``: wall, card kernel time and count, busy
-    share, and the port's four kernels' seconds and launches (also inside
+    share, and the port's kernels' seconds and launches (also inside
     replayed graphs)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1234,33 +1358,35 @@ def _launches() -> dict:
 
 def _per_frame(dist_per_frame, klt_per_frame, lm_per_frame) -> dict:
     """Launches per frame of each of ``KERNELS``; ``lm_per_frame`` is
-    (lm_lidar, lm_joint)."""
+    (lm_lidar, lm_joint, corr_fit)."""
     return dict(zip(KERNELS, (dist_per_frame, klt_per_frame, *lm_per_frame)))
 
 
 def _graph_calls(dist_per_frame, klt_per_frame, lm_per_frame,
-                 eager_dist=0) -> dict:
+                 eager_dist=0, eager_corr=0) -> dict:
     """The wrapper calls a run on the card makes since the last
     ``graphs.release()``: each CUDA graph it captured runs the step once
     eagerly (its warm-up) and once under capture, and a replay calls no
-    wrapper; ``eager_dist`` adds eager calls outside the graphs (the
-    smoother's).  The launches inside the replays are counted from a
-    profile (:func:`_device_time`)."""
+    wrapper; ``eager_dist`` and ``eager_corr`` add eager ``dist_topk`` and
+    ``corr_fit`` calls outside the graphs (the smoother's).  The launches
+    inside the replays are counted from a profile (:func:`_device_time`).
+    """
     from velo_tpu_torch.pipeline import graphs
 
     n = 2 * len(graphs.captures())
     calls = {k: v * n for k, v in _per_frame(
         dist_per_frame, klt_per_frame, lm_per_frame).items()}
     calls["dist_topk"] += eager_dist
+    calls["corr_fit"] += eager_corr
     return calls
 
 
 def _expect_launches(what, launches, dist_per_frame, klt_per_frame,
-                     lm_per_frame, eager_dist=0):
+                     lm_per_frame, eager_dist=0, eager_corr=0):
     """The wrapper calls of a run against :func:`_graph_calls`, with at
     least one graph captured where a kernel runs at all."""
     expect = _graph_calls(dist_per_frame, klt_per_frame, lm_per_frame,
-                          eager_dist)
+                          eager_dist, eager_corr)
     per_frame = _per_frame(dist_per_frame, klt_per_frame, lm_per_frame)
     if launches != expect or any(
             k and not launches[name] for name, k in per_frame.items()):
@@ -1348,7 +1474,8 @@ def cli_kitti(dev, tmp, root, smi) -> dict:
         base + ["--frames", str(N_FRAMES), "--out", path("smooth"),
                 "--checkpoint", path("ck.npz"), "--smooth"] + every)
     _expect_launches("cli-kitti", launches, 4, 2, LM_FUSED,
-                     eager_dist=2 * N_FRAMES * SMOOTH_PASSES)
+                     eager_dist=2 * N_FRAMES * SMOOTH_PASSES,
+                     eager_corr=SMOOTH_CORR)
     # The native prefetch loader read the scans, binning them in its
     # workers; not the Python fallback.
     if "scan reader: native-binned\n" not in err:
@@ -1427,9 +1554,11 @@ def cli_kitti(dev, tmp, root, smi) -> dict:
         pass_s.append(time.perf_counter() - t0)
         per_pass.append(poses)
     graphs.release()  # the smoother's passes run eagerly
-    # Its scan-to-map solves carry no motion prior: the plain LM path.
+    # Its scan-to-map solves carry no motion prior: the plain LM path; each
+    # outer iteration's fit is one corr_fit launch.
     _expect_launches("smoother", _launches(), 0, 0, LM_NONE,
-                     eager_dist=2 * N_FRAMES * SMOOTH_PASSES)
+                     eager_dist=2 * N_FRAMES * SMOOTH_PASSES,
+                     eager_corr=SMOOTH_CORR)
     # The gauge fix re-bases every pose on frame 0: float32 rounding apart,
     # it stays where the forward pass put it.
     if not np.allclose(poses[0], full["poses"][0], atol=1e-5):
@@ -1496,9 +1625,8 @@ def cli_variants(tmp) -> dict:
                         ("no-prebin", ["--no-prebin"])):
         res, _, launches = _cli(base + flags + [
             "--out", os.path.join(tmp, "v-" + name)])
-        # --fast's deferred-tail LM bypasses lm_lidar.
         _expect_launches(f"cli {name}", launches, 4, 0,
-                         LM_NONE if name == "fast" else LM_LIDAR)
+                         LM_FAST if name == "fast" else LM_LIDAR)
         p = kitti.read_poses(os.path.join(tmp, "v-" + name, "synthetic.txt"))
         if p.shape != (n, 4, 4) or not np.isfinite(p).all():
             raise AssertionError(f"cli {name}: bad pose file {p.shape}")
@@ -2589,6 +2717,7 @@ def main() -> int:
         kk = phase("klt_l0", klt_l0_check, dev, fx)
         lk = phase("lm_lidar", lm_lidar_check, dev, grids)
         jk = phase("lm_joint", lm_joint_check, dev, fx, grids)
+        ck = phase("corr_fit", corr_fit_check, dev, grids)
         runs, cpu_poses = {}, {}
         for mode in ("fused", "fused-gather", "lidar", *VARIANTS):
             runs[mode], cpu_poses[mode] = phase(mode, pipeline_run, dev,
@@ -2699,6 +2828,17 @@ def main() -> int:
         "here)", jk, None,
         library_call="none: no single PyTorch call runs an LM solve",
         t_bitwise=jk["t_bitwise"], solves=jk["solves"]))
+    # corr_fit's numbers are per call: the dense engine's scan-to-scan and
+    # map fits (a LiDAR frame runs 6 of the one and 3 of the other).
+    shapes = [s for s in ck["per_shape"] if s["engine"] == "lidar"]
+    kernels.append(entry(
+        "corr_fit", "velo_tpu_torch/csrc/corr_fit.cu",
+        "none: the fits of solve/icp (plain PyTorch; the reference's are "
+        "plain XLA)", ck, None,
+        library_call="none: no single PyTorch call re-ranks and fits",
+        fits=ck["fits"],
+        **{k: sum(s[k] for s in shapes) / len(shapes)
+           for k in ("ms", "plain_ms", "bound_ms")}))
     print(json.dumps({"pipeline": runs, "phase_seconds": seconds,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -134,9 +134,10 @@ class _Built(Exception):
 
 
 @pytest.mark.parametrize("name,libraries", [
-    ("lidar", {"dist_topk", "klt_l0", "lm_lidar", "stage_mark"}),
+    ("lidar", {"dist_topk", "klt_l0", "lm_lidar", "corr_fit",
+               "stage_mark"}),
     ("fused-pallas", {"dist_topk", "klt_l0", "lm_lidar", "lm_joint",
-                      "stage_mark"})])
+                      "corr_fit", "stage_mark"})])
 def test_first_capture_builds_the_step_libraries(name, libraries,
                                                  monkeypatch):
     """What a step builds before its first capture: every kernel a step

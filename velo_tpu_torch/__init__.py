@@ -10,15 +10,16 @@ Functions take tensors on an explicit device and keep the reference's
 layouts at their interfaces: float32 points and images, bool masks and
 int32 indices.
 
-Four hand-written CUDA C++ kernels for sm_90a, built at first use from
+Five hand-written CUDA C++ kernels for sm_90a, built at first use from
 ``csrc/`` (``kernels/_build``): ``kernels.dist_topk`` (candidate search)
 and ``kernels.klt_l0`` (level-0 KLT with ``klt_impl="pallas"``), the
-counterparts of the reference's two Pallas kernels, and
-``kernels.lm_lidar`` and ``kernels.lm_joint`` (one launch per LM solve of
-the LiDAR-only and of the joint LiDAR-visual system).  On a CPU tensor
+counterparts of the reference's two Pallas kernels, ``kernels.lm_lidar``
+and ``kernels.lm_joint`` (one launch per LM solve of the LiDAR-only and
+of the joint LiDAR-visual system) and ``kernels.corr_fit`` (one launch
+per ICP outer iteration's correspondence fit).  On a CPU tensor
 ``dist_topk`` and ``klt_l0`` run their plain PyTorch versions instead;
-the LM kernels take CUDA tensors only, and ``solve/icp`` keeps the plain
-solve off the card.
+the LM and fit kernels take CUDA tensors only, and ``solve/icp`` keeps
+the plain versions off the card.
 """
 import torch as _torch
 

@@ -17,6 +17,8 @@ Chrome-trace exporter.
     seconds (``graphs.launch``: each unprofiled ``graph.replay()``;
     ``lm.kernel`` / ``lm.plain``: each LM solve ``solve/icp._solve`` runs
     as one ``lm_lidar`` or ``lm_joint`` launch or on the plain path;
+    ``fit.kernel`` / ``fit.plain``: each correspondence fit of an outer
+    iteration, ``solve/icp._fit``, as one ``corr_fit`` launch or plain;
     ``kernel.<name>``: each launch of one of the port's CUDA kernels,
     ``kernels/_build.KERNELS``, a batched call one; all counted when the
     Python runs: eagerly, or at a graph's warm-up and capture, never inside

@@ -52,13 +52,14 @@ class Library(NamedTuple):
     vision: bool = False  # launched only by a step with images
 
 
-# lm_lidar and lm_joint mirror the plain path's float32 roundings
-# operation for operation: no multiply and add may fuse.  lm_joint, the
-# slowest to build (~19 s), is a library of its own so that a LiDAR-only
-# step never waits for it.
+# lm_lidar, lm_joint and corr_fit mirror the plain path's float32
+# roundings operation for operation: no multiply and add may fuse.
+# lm_joint, the slowest to build (~19 s), is a library of its own so that a
+# LiDAR-only step never waits for it.
 LIBRARIES = {"dist_topk": Library(), "klt_l0": Library(),
              "lm_lidar": Library(("-fmad=false",)),
              "lm_joint": Library(("-fmad=false",), vision=True),
+             "corr_fit": Library(("-fmad=false",)),
              "stage_mark": Library(kernel=False)}
 # The port's CUDA kernels: each name is in its kernel's and no other's.
 KERNELS = tuple(name for name, lib in LIBRARIES.items() if lib.kernel)

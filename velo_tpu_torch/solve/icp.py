@@ -8,11 +8,13 @@ the search: "dense" runs the global search once per target set
 candidates per query) and the outer iterations re-rank only those
 candidates; "hash" queries a voxel-hash grid of the targets
 (``mapping.voxel_hash``) at every outer iteration, without the kernel.
-The solved variable ``T_target_cur`` maps current-scan coordinates into
-the target frame (previous scan, or map/world).  With ``vis`` (the fused
-path) the scan-to-scan system also carries the visual reprojection and
-epipolar blocks.  ``solve_scan_to_scan_ct`` (``ct_sweep``) solves 12 DoF:
-the pose and the scan's own sweep motion.
+Each outer iteration's correspondence fit (the rows of every query, then
+edge lines and PCA planes) is :func:`_fit`: one ``corr_fit`` kernel launch
+on the card.  The solved variable ``T_target_cur`` maps current-scan
+coordinates into the target frame (previous scan, or map/world).  With
+``vis`` (the fused path) the scan-to-scan system also carries the visual
+reprojection and epipolar blocks.  ``solve_scan_to_scan_ct``
+(``ct_sweep``) solves 12 DoF: the pose and the scan's own sweep motion.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from velo_tpu_torch import fp
 from velo_tpu_torch.evaluation import profiling
 from velo_tpu_torch.geom import linalg as lin3
 from velo_tpu_torch.geom import se3
-from velo_tpu_torch.kernels import lm_joint, lm_lidar
+from velo_tpu_torch.kernels import corr_fit, lm_joint, lm_lidar
 from velo_tpu_torch.lidar import deskew as deskew_mod
 from velo_tpu_torch.mapping import dense_nn, voxel_hash
 from velo_tpu_torch.mapping.dense_nn import TargetSet, make_targets  # noqa: F401
@@ -122,9 +124,10 @@ def _cand_query(cache: CandCache, cfg):
 def _make_engine(targets: TargetSet, queries: torch.Tensor,
                  qmask: torch.Tensor, T_init: torch.Tensor, cfg,
                  cands: CandCache | None = None):
-    """``query(p, mask, k) -> (nbr (Q,k,3), payload (Q,k,P), dist, valid)``
-    of ``cfg.nn_engine``; ``cands`` reuses a caller's candidate cache
-    (dense engine only)."""
+    """``rows(p, mask, k) -> corr_fit.Rows`` of ``cfg.nn_engine``: the
+    dense engine's candidate cache, re-ranked by the fit, or the k rows of
+    a hash query; ``cands`` reuses a caller's candidate cache (dense engine
+    only)."""
     if cfg.nn_engine == "hash":
         # Stages ``hash_build`` / ``hash_query``, nested in the calling
         # solve's stage.
@@ -138,17 +141,20 @@ def _make_engine(targets: TargetSet, queries: torch.Tensor,
                                          cfg.voxel_size, center=center,
                                          payload=targets.payload)
 
-        def query(p, mask, k):
+        def rows(p, mask, k):
             with profiling.stage("hash_query"):
-                idx, dist, val = voxel_hash.knn(
+                idx, _, val = voxel_hash.knn(
                     grid, p, mask, k=k, max_dist=cfg.corr_max_dist,
                     occupancy=cfg.voxel_occupancy)
-                return grid.pts[idx], grid.payload[idx], dist, val
+                return corr_fit.Rows(grid.pts[idx], grid.payload[idx], val,
+                                     k, rerank=False)
 
-        return query
+        return rows
     if cands is None:
         cands = build_candidates(targets, queries, qmask, T_init, cfg)
-    return _cand_query(cands, cfg)
+    return lambda p, mask, k: corr_fit.Rows(
+        cands.pts, cands.payload, cands.ok, min(k, cands.pts.shape[1]),
+        rerank=True)
 
 
 def _edge_lines_2pt(query, p, mask):
@@ -171,6 +177,23 @@ def _planar_planes_fit(query, p, mask, k):
     nbr, _, dist, val = query(p, mask, k)
     n, d, ok, q = res.fit_plane_eig(nbr, val)
     return n, d, ok & mask & (val.sum(dim=1) >= 3), q
+
+
+def _fit(eq, pq, pe, e_mask, pp, p_mask, cfg, line=False) -> corr_fit.Fit:
+    """One outer iteration's correspondences at the moved edges ``pe`` and
+    planars ``pp``, from the engines ``eq`` / ``pq``: the 2-point edge
+    lines (or with ``line`` the map solve's PCA lines) and the PCA planes.
+    On the card one ``corr_fit`` launch, counted as ``fit.kernel``;
+    elsewhere its plain version, ``fit.plain``."""
+    e_rows = eq(pe, e_mask, cfg.map_knn if line else 5)
+    p_rows = pq(pp, p_mask, cfg.map_knn)
+    if pe.device.type == "cuda":
+        profiling.add("fit.kernel")
+        return corr_fit.corr_fit(e_rows, pe, e_mask, p_rows, pp, p_mask, cfg,
+                                 line=line)
+    profiling.add("fit.plain")
+    return corr_fit.corr_fit_reference(e_rows, pe, e_mask, p_rows, pp,
+                                       p_mask, cfg, line=line)
 
 
 def _prior_weights(cfg, prior_T, prior_scale):
@@ -495,11 +518,9 @@ def solve_scan_to_scan(cur_edges, cur_edge_mask, cur_planars,
                       cfg, cands=planar_cands)
 
     def fit(T):
-        a, b, e_ok = _edge_lines_2pt(eq, se3.apply(T, cur_edges),
-                                     cur_edge_mask)
-        n, d, p_ok, p_q = _planar_planes_fit(
-            pq, se3.apply(T, cur_planars), cur_planar_mask, cfg.map_knn)
-        return a, b, e_ok, n, d, p_ok, {"planar_q": p_q}
+        f = _fit(eq, pq, se3.apply(T, cur_edges), cur_edge_mask,
+                 se3.apply(T, cur_planars), cur_planar_mask, cfg)
+        return f.a, f.b, f.e_ok, f.n, f.d, f.p_ok, {"planar_q": f.p_q}
 
     return _solve(cur_edges, cur_edge_mask, cur_planars, cur_planar_mask,
                   T_init, cfg, outer, prior_T, prior_scale, fit, vis=vis)
@@ -512,21 +533,15 @@ def solve_scan_to_map(cur_edges, cur_edge_mask, cur_planars,
                       prior_scale=None):
     """LOAM mapping solve: eigen line/plane fits over k-NN in the local map."""
     outer = cfg.icp_iters_map if iters is None else iters
-    k = cfg.map_knn
     eq = _make_engine(edge_targets, cur_edges, cur_edge_mask, T_init, cfg)
     pq = _make_engine(planar_targets, cur_planars, cur_planar_mask, T_init,
                       cfg)
 
     def fit(T):
-        e_nbr, _, _, e_val = eq(se3.apply(T, cur_edges), cur_edge_mask, k)
-        mu, direction, l_ok, e_q = res.fit_line_eig(e_nbr, e_val)
-        # Two virtual points on the fitted line.
-        a = mu - 0.1 * direction
-        b = mu + 0.1 * direction
-        n, d, p_ok, p_q = _planar_planes_fit(
-            pq, se3.apply(T, cur_planars), cur_planar_mask, k)
-        return (a, b, l_ok & cur_edge_mask, n, d, p_ok & cur_planar_mask,
-                {"edge_q": e_q, "planar_q": p_q})
+        f = _fit(eq, pq, se3.apply(T, cur_edges), cur_edge_mask,
+                 se3.apply(T, cur_planars), cur_planar_mask, cfg, line=True)
+        return (f.a, f.b, f.e_ok, f.n, f.d, f.p_ok,
+                {"edge_q": f.e_q, "planar_q": f.p_q})
 
     return _solve(cur_edges, cur_edge_mask, cur_planars, cur_planar_mask,
                   T_init, cfg, outer, prior_T, prior_scale, fit)
@@ -672,11 +687,11 @@ def solve_scan_to_scan_ct(edges_base, edge_phase, edge_mask, planars_base,
     for _ in range(outer):
         e_cur = torch.where(edge_mask[:, None], deskew_mod.redeskew(
             edges_base, edge_phase, xi_ref, xi2), 0.0)
-        a, b, e_ok = _edge_lines_2pt(eq, se3.apply(T, e_cur), edge_mask)
         p_cur = torch.where(planar_mask[:, None], deskew_mod.redeskew(
             planars_base, planar_phase, xi_ref, xi2), 0.0)
-        n, d, p_ok, p_q = _planar_planes_fit(pq, se3.apply(T, p_cur),
-                                             planar_mask, cfg.map_knn)
+        a, b, e_ok, _, n, d, p_ok, p_q = _fit(
+            eq, pq, se3.apply(T, e_cur), edge_mask, se3.apply(T, p_cur),
+            planar_mask, cfg)
         corr = (edges_base, edge_phase, edge_mask, a, b, e_ok, planars_base,
                 planar_phase, planar_mask, n, d, p_ok, xi_ref, cfg)
         stage = _make_stage_ct(cfg, prior_T, prior_scale,
